@@ -1,0 +1,68 @@
+"""apda_fft_tpu_torch - the epoch pipeline of ``apda_fft_tpu`` on PyTorch and CUDA.
+
+A port of the JAX package beside it, module for module and name for name.
+It imports torch and numpy only.  The flexible-mode detector's fused
+select+scan stage runs as a hand-written CUDA kernel for Hopper (``sm_90a``)
+on CUDA tensors and as plain torch on CPU tensors.  The package picks no
+device: an epoch runs where its samples (or the ``device=`` argument) are.
+
+Quick start::
+
+    import apda_fft_tpu_torch as apda
+    result = apda.analyze_epoch(samples, fs=500.0, mode="flexible", refine=True)
+    result.freq, result.mag, result.count
+"""
+
+from apda_fft_tpu_torch.models.pipeline import (
+    PipelineConfig,
+    SpectralPipeline,
+    analyze_epoch,
+    default_k,
+    detect_from_mags,
+    dynamic_state,
+    last_dynamic_stats,
+    load_dynamic_state,
+    reset_dynamic_state,
+    steady_state_max_candidates,
+)
+from apda_fft_tpu_torch.models.results import EpochResult
+from apda_fft_tpu_torch.ops.detector_cuda import (
+    prominence_peaks_fused,
+    prominence_select_scan,
+)
+from apda_fft_tpu_torch.ops.fft import (
+    center_and_pad,
+    halfspec_magnitudes,
+    next_pow2,
+    taper_window,
+)
+from apda_fft_tpu_torch.ops.peaks_prominence import ProminencePeaks, prominence_peaks
+from apda_fft_tpu_torch.ops.peaks_resolution import ResolutionPeaks, resolution_peaks
+from apda_fft_tpu_torch.utils.profiling import EpochMetrics
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "EpochMetrics",
+    "EpochResult",
+    "PipelineConfig",
+    "ProminencePeaks",
+    "ResolutionPeaks",
+    "SpectralPipeline",
+    "analyze_epoch",
+    "center_and_pad",
+    "default_k",
+    "detect_from_mags",
+    "dynamic_state",
+    "halfspec_magnitudes",
+    "last_dynamic_stats",
+    "load_dynamic_state",
+    "next_pow2",
+    "prominence_peaks",
+    "prominence_peaks_fused",
+    "prominence_select_scan",
+    "reset_dynamic_state",
+    "resolution_peaks",
+    "steady_state_max_candidates",
+    "taper_window",
+]

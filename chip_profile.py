@@ -1,0 +1,193 @@
+"""Where an epoch's time goes on one NVIDIA GPU, and two host-side probes.
+
+    python3 chip_profile.py            # everything below, ~2 min on an H100
+    python3 chip_profile.py --skip-cpu-probe
+
+1. profile: flexible ``analyze_epoch`` (refine, lowlat="never") on the
+   B=2048 x N=4096 clean and noisy corpora of ``chip_smoke.py``, after two
+   epochs that learn the budget: host wall per epoch (mean of 20
+   unprofiled epochs, synchronized), then ``torch.profiler`` over 3
+   epochs for the device's busy time, kernels per epoch, the idle share
+   (1 - busy / wall) and the top kernels;
+2. finalize forms: ``prominence_finalize`` in its unrolled and its
+   slot-wise form (forced through ``_UNROLL_MAX``) on the select+scan
+   kernel's outputs for the noisy spectra at M in {2, 4, 8, 12, 128}:
+   both must give the same result; CUDA-event median of 20, A-B-B-A;
+3. CPU probe: the port's CPU ``analyze_epoch`` on 256 clean windows at the
+   default intra-op thread count against one thread, repeated in this
+   process and in fresh processes that first run an epoch on the card
+   (the setting in which ``chip_smoke.py``'s CPU reference once went
+   wrong); a last child runs the CPU front end with oneDNN's and MKL's
+   verbose logs on and reports which GEMM paths it took.
+
+Every line carries the card's name and power limit.  Exit code 0 unless a
+check fails; the probe's mismatches are reported, not raised.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+import chip_smoke
+from apda_fft_tpu_torch.models import pipeline
+from apda_fft_tpu_torch.ops import detector_cuda, peaks_prominence
+from apda_fft_tpu_torch.ops.fft import halfspec_magnitudes
+
+FS, N_FFT, BATCH = chip_smoke.FS, chip_smoke.N_FFT, chip_smoke.BATCH
+log = chip_smoke.log
+
+
+def epoch(xs: torch.Tensor):
+    return pipeline.analyze_epoch(
+        xs, FS, n_fft=N_FFT, mode="flexible", refine=True, lowlat="never")
+
+
+def profile(corpora: dict[str, np.ndarray], card: str) -> None:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    pipeline.reset_dynamic_state()
+    for name, x in corpora.items():
+        xs = torch.from_numpy(x).cuda()
+        for _ in range(2):
+            epoch(xs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            epoch(xs)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / 20 * 1e3
+        runs = 3
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                epoch(xs)
+            torch.cuda.synchronize()
+        per_kernel = collections.defaultdict(float)
+        n_kernels = 0
+        for evt in prof.events():
+            if evt.device_type == DeviceType.CUDA:
+                per_kernel[evt.name] += evt.device_time / 1e3 / runs
+                n_kernels += 1
+        busy_ms = sum(per_kernel.values())
+        log(f"[profile] {name}: host wall {wall_ms:.4f} ms/epoch (mean of 20, unprofiled); "
+            f"device busy {busy_ms:.4f} ms/epoch over {n_kernels // runs} kernels "
+            f"(profiled) = idle share {1 - busy_ms / wall_ms:.3f}; "
+            f"stats {pipeline.last_dynamic_stats()}; {card}")
+        for kname, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"[profile]   {ms:.4f} ms  {kname[:100]}")
+
+
+def finalize_forms(noisy: np.ndarray, card: str) -> None:
+    mags = chip_smoke.centered_mags(torch.from_numpy(noisy).cuda()).contiguous()
+    forms = {"unrolled": 10**9, "slot-wise": 0}
+    for m in (2, 4, 8, 12, 128):
+        args = detector_cuda.prominence_select_scan(mags, m)
+        cid, is_cand, cmag, proms, bins, std, n_cand = args
+
+        def run(form):
+            peaks_prominence._UNROLL_MAX = forms[form]
+            return peaks_prominence.prominence_finalize(
+                cid, is_cand, cmag, proms, bins, FS, N_FFT, 4, std, n_cand)
+
+        saved = peaks_prominence._UNROLL_MAX
+        try:
+            a, b = run("unrolled"), run("slot-wise")
+            for fa, fb, fname in zip(a, b, a._fields):
+                assert torch.equal(fa, fb), (m, fname)
+            times = collections.defaultdict(list)
+            for form in ("unrolled", "slot-wise", "slot-wise", "unrolled"):
+                times[form].append(chip_smoke.event_ms(lambda: run(form)))
+        finally:
+            peaks_prominence._UNROLL_MAX = saved
+        log(f"[finalize] B={BATCH} M={m} k=4: unrolled "
+            f"{' / '.join(f'{t:.4f}' for t in times['unrolled'])} ms, slot-wise "
+            f"{' / '.join(f'{t:.4f}' for t in times['slot-wise'])} ms (same result; "
+            f"CUDA-event median of {chip_smoke.TIMING_RUNS}, A-B-B-A; {card})")
+
+
+def cpu_mismatch(x: np.ndarray) -> str:
+    """Run the CPU epoch at the default thread count, then at one thread;
+    describe the rows whose magnitudes differ by more than 1e-6 relative."""
+    xc = torch.from_numpy(x)
+    many = pipeline.analyze_epoch(xc, FS, n_fft=N_FFT, mode="flexible", max_candidates=2)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one = pipeline.analyze_epoch(xc, FS, n_fft=N_FFT, mode="flexible", max_candidates=2)
+    finally:
+        torch.set_num_threads(threads)
+    rel = ((many.mag - one.mag).abs().amax(-1) / one.mag.abs().amax(-1)).numpy()
+    bad = np.flatnonzero(rel > 1e-6)
+    if bad.size == 0:
+        return "equal"
+    return f"{bad.size} rows off (rows {bad.min()}..{bad.max()}, max rel {rel.max():.3g})"
+
+
+def cpu_probe(corpora: dict[str, np.ndarray], card: str) -> None:
+    x = corpora["clean"][:256]
+    log(f"[cpu probe] {torch.get_num_threads()} threads, cpu capability "
+        f"{torch.backends.cpu.get_cpu_capability()}, mkldnn matmul fp32_precision "
+        f"{torch.backends.mkldnn.matmul.fp32_precision!r}, float32_matmul_precision "
+        f"{torch.get_float32_matmul_precision()!r}")
+    xs = torch.from_numpy(corpora["clean"]).cuda()
+    found = []
+    for _ in range(20):
+        epoch(xs)
+        torch.cuda.synchronize()
+        found.append(cpu_mismatch(x))
+    log(f"[cpu probe] in process, 20 runs after a card epoch each: "
+        f"{sum(f != 'equal' for f in found)} off {[f for f in found if f != 'equal']}")
+    children = []
+    for _ in range(6):
+        out = subprocess.run([sys.executable, __file__, "--cpu-probe-child"],
+                             capture_output=True, text=True, check=True, timeout=300)
+        children.append(out.stdout.strip().splitlines()[-1])
+    log(f"[cpu probe] fresh processes, first CPU epoch after a card epoch: "
+        f"{sum(c != 'equal' for c in children)} of 6 off {children}")
+    env = dict(os.environ, ONEDNN_VERBOSE="1", MKL_VERBOSE="1")
+    out = subprocess.run([sys.executable, __file__, "--cpu-gemm-child"], env=env,
+                         capture_output=True, text=True, check=True, timeout=300)
+    lines = out.stdout.splitlines()
+    onednn = [ln for ln in lines if ln.startswith("onednn_verbose") and ",exec," in ln]
+    mkl = [ln for ln in lines if ln.startswith("MKL_VERBOSE")]
+    log(f"[cpu probe] front end at {torch.get_num_threads()} threads: {len(onednn)} oneDNN "
+        f"primitives, {len(mkl)} MKL calls; {card}")
+    for ln in (onednn[:3] + mkl[:3]):
+        log(f"[cpu probe]   {ln[:200]}")
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--skip-cpu-probe", action="store_true")
+    parser.add_argument("--cpu-probe-child", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--cpu-gemm-child", action="store_true", help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    if args.cpu_gemm_child:
+        halfspec_magnitudes(torch.from_numpy(chip_smoke.clean_batch(256)))
+        return 0
+    if args.cpu_probe_child:
+        epoch(torch.from_numpy(chip_smoke.clean_batch(BATCH)).cuda())
+        torch.cuda.synchronize()
+        print(cpu_mismatch(chip_smoke.clean_batch(256)))
+        return 0
+    card = chip_smoke.phase_device()
+    corpora = {"clean": chip_smoke.clean_batch(BATCH), "noisy": chip_smoke.noisy_batch(BATCH)}
+    profile(corpora, card)
+    finalize_forms(corpora["noisy"], card)
+    if not args.skip_cpu_probe:
+        cpu_probe(corpora, card)
+    log(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

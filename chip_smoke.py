@@ -1,0 +1,432 @@
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and the exit code is non-zero:
+
+1. device: a CUDA device must be present; prints the card's name and power
+   limit (``nvidia-smi``);
+2. build: compiles ``apda_fft_tpu_torch/csrc/prominence_select_scan.cu``
+   with nvcc (sm_90a) and prints the seconds it took;
+3. kernel vs plain on the card: the select+scan kernel against its plain
+   torch version on four spectrum corpora at H in {32, 128, 2048, 32768}
+   and M in {2, 12, 32, 128} - integers equal, floats within rtol 1e-6;
+4. spectrum accuracy: the four-step magnitudes against float64 numpy.fft,
+   <= 1e-6 normwise at N in {1024, 4096, 65536};
+5. main path: ``analyze_epoch`` (flexible, refine, lowlat="never") on the
+   B=2048 x N=4096 clean and noisy corpora, two epochs each, so the noisy
+   run learns and then uses the two-tier split; the kernel's launch count
+   must be > 0; every kernel call of that run is held against the plain
+   version on its own spectra (at its budget and at the path's other
+   budgets); decisions are checked against the port's CPU run (256
+   windows) and the float64 oracle (32 windows); one rigid and one adaptive
+   epoch (B=256) are checked against the CPU run;
+6. times (CUDA events, warm-up, median of 20): kernel vs plain at H=2048,
+   M in {2, 12, 128}, and whole epochs in windows/s beside the front end
+   and the detect stage alone;
+7. one JSON line describing the kernel, then the result line
+   ``{"ok": true, "device": {...}}``.
+
+It needs one card and no network, and imports neither JAX nor the JAX
+package (the oracle in ``tests/oracle.py`` is plain numpy).
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+import platform
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from apda_fft_tpu_torch.models import pipeline
+from apda_fft_tpu_torch.ops import detector_cuda
+from apda_fft_tpu_torch.ops.detector_cuda import (
+    _prominence_select_scan_plain,
+    prominence_select_scan,
+)
+from apda_fft_tpu_torch.ops.fft import halfspec_magnitudes
+from apda_fft_tpu_torch.utils import kernels
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+N_FFT = 4096
+FS = 500.0
+BATCH = 2048
+KERNEL_SOURCE = "apda_fft_tpu_torch/csrc/prominence_select_scan.cu"
+KERNEL_REPLACES = "apda_fft_tpu/ops/detector_pallas.py:360"
+TIMING_RUNS = 20
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------- corpora
+
+
+def clean_batch(batch: int) -> np.ndarray:
+    """bench.py's clean epoch: two tones + DC + light noise, seed 42."""
+    rng = np.random.default_rng(42)
+    t = np.arange(N_FFT) / FS
+    base = np.sin(2 * np.pi * 12.3 * t) + 0.6 * np.sin(2 * np.pi * 47.7 * t) + 0.1
+    return (base[None, :] + 0.05 * rng.standard_normal((batch, N_FFT))).astype(np.float32)
+
+
+def noisy_batch(batch: int) -> np.ndarray:
+    """bench.py's noisy epoch: unit broadband noise + 4 weak damped modes, seed 1234."""
+    rng = np.random.default_rng(1234)
+    t = np.arange(N_FFT) / FS
+    x = rng.standard_normal((batch, N_FFT)).astype(np.float64)
+    for f, a, zeta in ((12.3, 0.9, 0.01), (47.7, 0.7, 0.008),
+                       (88.4, 0.55, 0.015), (141.2, 0.45, 0.02)):
+        phase = rng.uniform(0, 2 * np.pi, size=(batch, 1))
+        x += a * np.sin(2 * np.pi * f * t[None, :] + phase) * np.exp(
+            -zeta * 2 * np.pi * f * t[None, :]
+        )
+    return x.astype(np.float32)
+
+
+def spectra(b: int, h: int, seed: int, kind: str) -> np.ndarray:
+    """Half-spectrum magnitudes with a zeroed DC bin: modal, noise, flat or
+    ties (quantized so rounded-magnitude ties are everywhere)."""
+    rng = np.random.default_rng(seed)
+    bins = np.arange(h, dtype=np.float64)
+    if kind == "modal":
+        x = np.zeros((b, h))
+        for w in range(b):
+            for _ in range(rng.integers(1, 5)):
+                c = rng.uniform(4, h - 4)
+                width = rng.uniform(0.8, 6.0)
+                amp = rng.uniform(1.0, 40.0)
+                x[w] += amp * np.exp(-0.5 * ((bins - c) / width) ** 2)
+        x += rng.uniform(0.0, 0.3) * rng.random((b, h))
+    elif kind == "noise":
+        x = rng.random((b, h)) * 5.0
+    elif kind == "flat":
+        x = np.full((b, h), 2.5)
+    else:
+        x = np.round(rng.random((b, h)) * 30.0) / 10.0
+    x[:, 0] = 0.0
+    return x.astype(np.float32)
+
+
+def centered_mags(x: torch.Tensor) -> torch.Tensor:
+    return halfspec_magnitudes(x - x.mean(dim=-1, keepdim=True), backend="matmul")
+
+
+# ---------------------------------------------------------------- timing
+
+
+def event_ms(fn, runs: int = TIMING_RUNS, warmup: int = 3) -> float:
+    """Median device time of ``fn()`` in ms over ``runs`` CUDA-event windows."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------- phases
+
+
+def phase_device() -> str:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(f"[1 device] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} devices {torch.cuda.device_count()}; "
+        f"host {platform.machine()}, {torch.get_num_threads()} torch threads")
+    log(card)
+    return card
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    path = kernels.library_path("prominence_select_scan")
+    detector_cuda._kernel_fn()
+    log(f"[2 build] {os.path.relpath(path, ROOT)} in {time.perf_counter() - t0:.2f} s "
+        f"(nvcc {kernels.nvcc_path()})")
+
+
+def _kernel_equals_plain(mags: torch.Tensor, m: int, got, case: str) -> float:
+    """Hold the kernel's seven outputs ``got`` for ``mags`` at budget ``m``
+    against the plain version: integers equal, floats within rtol 1e-6.
+    Returns the max abs float difference."""
+    want = _prominence_select_scan_plain(mags, min(m, mags.shape[-1]))
+    names = ("cid", "is_cand", "cmag", "prom", "bins", "std", "n_cand")
+    err = 0.0
+    for name, g, w in zip(names, got, want):
+        g, w = g.cpu().numpy(), w.cpu().numpy()
+        assert g.shape == w.shape, (case, name, g.shape, w.shape)
+        if g.dtype.kind in "biu":
+            np.testing.assert_array_equal(g, w, err_msg=f"{case} {name}")
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-6, atol=0, err_msg=f"{case} {name}")
+            err = max(err, float(np.abs(g - w).max(initial=0.0)))
+    return err
+
+
+def phase_kernel_vs_plain() -> float:
+    """Kernel against plain torch on the card; returns the max abs float error."""
+    before = detector_cuda.launches
+    worst = 0.0
+    for kind in ("modal", "noise", "flat", "ties"):
+        for h in (32, 128, 2048, 32768):
+            b = 16 if h > 4096 else 64
+            mags = torch.from_numpy(spectra(b, h, seed=h + len(kind), kind=kind)).cuda()
+            diffs = []
+            for m in (2, 12, 32, 128):
+                got = prominence_select_scan(mags, m)
+                err = _kernel_equals_plain(mags, m, got, f"{kind} H={h} M={m}")
+                diffs.append(err)
+                worst = max(worst, err)
+            log(f"[3 kernel==plain] {kind:5s} H={h:5d} B={b}: max|float diff| at "
+                f"M=2/12/32/128 = {', '.join(f'{d:.3g}' for d in diffs)}")
+    assert detector_cuda.launches > before, "the kernel was never launched"
+    log(f"[3 kernel==plain] all 64 cases equal; launches {detector_cuda.launches - before}; "
+        f"max abs float diff {worst:.3g}")
+    return worst
+
+
+def phase_spectrum() -> None:
+    rng = np.random.default_rng(7)
+    for n, b in ((1024, 64), (4096, 64), (65536, 8)):
+        x = rng.standard_normal((b, n)).astype(np.float32)
+        ref = np.abs(np.fft.rfft(x.astype(np.float64))[:, : n // 2])
+        ref[:, 0] = 0.0
+        got = halfspec_magnitudes(torch.from_numpy(x).cuda(), backend="matmul").cpu().numpy()
+        err = np.linalg.norm(got - ref) / np.linalg.norm(ref)
+        log(f"[4 spectrum] N={n}: normwise error vs float64 numpy.fft {err:.3e}")
+        assert err <= 1e-6, (n, err)
+
+
+def _assert_same(got, want, fields_exact, fields_close, where: str) -> None:
+    for f in fields_exact:
+        np.testing.assert_array_equal(
+            getattr(got, f).cpu().numpy(), getattr(want, f).cpu().numpy(),
+            err_msg=f"{where} {f}")
+    for f, atol, rtol in fields_close:
+        np.testing.assert_allclose(
+            getattr(got, f).cpu().numpy(), getattr(want, f).cpu().numpy(),
+            atol=atol, rtol=rtol, err_msg=f"{where} {f}")
+
+
+def _which_side(x, gpu, cpu, oracle) -> str:
+    """For a card-vs-CPU mismatch: the first differing window's magnitudes
+    on both sides and in the float64 oracle, and both front ends' errors."""
+    d = (gpu.mag.cpu() - cpu.mag).abs().amax(-1)
+    i = int(torch.argmax(d))
+    want = [p["mag"] for p in oracle.oracle_analyze(x[i].astype(np.float64), FS, "flexible")]
+    w = x[i : i + 1] - x[i : i + 1].mean(axis=-1, keepdims=True)
+    ref = np.abs(np.fft.rfft(w.astype(np.float64))[:, : N_FFT // 2])
+    ref[:, 0] = 0.0
+    errs = []
+    for dev in ("cpu", "cuda"):
+        got = halfspec_magnitudes(torch.from_numpy(w).to(dev)).cpu().numpy()
+        errs.append(f"{dev} {np.linalg.norm(got - ref) / np.linalg.norm(ref):.3e}")
+    return (f"window {i} ({int((d > 1e-3).sum())} differ): card mag {gpu.mag[i].tolist()}, "
+            f"CPU mag {cpu.mag[i].tolist()}, oracle {want}; front end normwise "
+            f"error now: {', '.join(errs)}")
+
+
+def _cpu_reference(*args, **kwargs):
+    """The port's own ``analyze_epoch`` on the host, on one intra-op thread.
+
+    Twice in about ten runs on the H100 machine's host, an 8-thread CPU run
+    returned the magnitudes of exactly one thread's 32-window block about
+    2e-4 off (the card and the float64 oracle agreed with each other); a
+    rerun in the same process was exact, and 2000 repeats of the same
+    products never showed it.  The cause is not known, so the CPU path at
+    more than one thread is unverified on that host: ``chip_profile.py``
+    probes it there, and ``tests/test_torch_fft.py`` checks it wherever the
+    tests run.  One thread keeps this reference out of that fault.
+    """
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return pipeline.analyze_epoch(*args, **kwargs)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _load_oracle():
+    spec = importlib.util.spec_from_file_location(
+        "apda_oracle", os.path.join(ROOT, "tests", "oracle.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_main_path_kernel_calls(calls) -> float:
+    """Every kernel call of the main path against the plain version on the
+    same spectra: at the call's own budget (the outputs the main path got),
+    then at the path's other budgets.  Returns the max abs float error."""
+    budgets = (2, 12, 32, 128)
+    worst = 0.0
+    for i, (mags, m, got) in enumerate(calls):
+        shape = "x".join(map(str, mags.shape))
+        diffs = [_kernel_equals_plain(mags, m, got, f"main-path call {i} [{shape}] M={m}")]
+        for other in budgets:
+            if other != m:
+                case = f"main-path call {i} [{shape}] at M={other}"
+                diffs.append(_kernel_equals_plain(
+                    mags, other, prominence_select_scan(mags, other), case))
+        worst = max(worst, *diffs)
+        log(f"[5 kernel==plain] main-path call {i}: [{shape}] M={m}: equal; max|float "
+            f"diff| {diffs[0]:.3g}; also equal at M in "
+            f"{[o for o in budgets if o != m]} (max {max(diffs[1:]):.3g})")
+    return worst
+
+
+def phase_main_path(corpora: dict[str, np.ndarray]) -> tuple[int, float]:
+    """Drive analyze_epoch on the card; returns the kernel launches it made
+    and the max abs float error of its kernel calls against plain."""
+    pipeline.reset_dynamic_state()
+    results, budgets = {}, {}
+    # Tap the wrapper the pipeline calls, so that each kernel call of the
+    # main path can be held against the plain version on its own spectra.
+    calls = []
+    wrapper = detector_cuda.prominence_select_scan
+
+    def tapped(mags, max_candidates):
+        out = wrapper(mags, max_candidates)
+        calls.append((mags.clone(), max_candidates, tuple(o.clone() for o in out)))
+        return out
+
+    detector_cuda.prominence_select_scan = tapped
+    detector_cuda.launches = 0
+    for name, x in corpora.items():
+        xs = torch.from_numpy(x).cuda()
+        for epoch in range(2):
+            res = pipeline.analyze_epoch(
+                xs, FS, n_fft=N_FFT, mode="flexible", refine=True, lowlat="never"
+            )
+            torch.cuda.synchronize()
+            stats = dict(pipeline.last_dynamic_stats())
+            log(f"[5 main path] {name} epoch {epoch}: count>0 in "
+                f"{int((res.count > 0).sum())}/{x.shape[0]} windows; {stats}")
+        results[name], budgets[name] = res, stats
+    launches = detector_cuda.launches
+    detector_cuda.prominence_select_scan = wrapper
+    log(f"[5 main path] dynamic_state {pipeline.dynamic_state()}")
+    log(f"[5 main path] kernel launches on the main path: {launches} "
+        f"(calls at {[(tuple(c[0].shape), c[1]) for c in calls]})")
+    assert launches > 0, "the main path never launched the detector kernel"
+    assert launches == len(calls), (launches, len(calls))
+    assert budgets["noisy"]["tier"] is not None, "the noisy epoch did not run two-tier"
+    max_err = phase_main_path_kernel_calls(calls)
+    del calls
+
+    oracle = _load_oracle()
+    for name, x in corpora.items():
+        res = results[name]
+        assert res.freq.shape == (x.shape[0], 4) and bool(torch.isfinite(res.freq).all())
+        for i in range(32):
+            want = oracle.oracle_analyze(x[i].astype(np.float64), FS, "flexible")
+            c = int(res.count[i])
+            assert c == len(want), (name, i, c, len(want))
+            assert res.idx[i, :c].tolist() == [p["idx"] for p in want], (name, i)
+            np.testing.assert_allclose(res.freq[i, :c].cpu().numpy(),
+                                       [p["freq"] for p in want], atol=1e-4, rtol=1e-6)
+        # The CPU reference runs on its own copy of the windows, at the
+        # budget the card's last pass used.
+        xc = torch.tensor(x[:256])
+        cpu = _cpu_reference(
+            xc, FS, n_fft=N_FFT, mode="flexible", refine=True, lowlat="never",
+            max_candidates=budgets[name]["candidate_budget"],
+        )
+        gpu = type(res)(*(f[:256] for f in res))
+        try:
+            _assert_same(gpu, cpu, ("count", "idx", "n_candidates", "n_required"),
+                         (("freq", 1e-4, 1e-6), ("mag", 1e-4, 1e-6)), f"{name} vs CPU")
+        except AssertionError as err:
+            raise AssertionError(f"{err}\n{_which_side(x, gpu, cpu, oracle)}") from err
+        log(f"[5 main path] {name}: 32 windows equal to the float64 oracle, 256 windows "
+            f"equal to the CPU run at budget {budgets[name]['candidate_budget']}")
+
+    for mode, name in (("rigid", "clean"), ("adaptive", "noisy")):
+        x = corpora[name][:256]
+        gpu = pipeline.analyze_epoch(torch.from_numpy(x).cuda(), FS, n_fft=N_FFT, mode=mode)
+        cpu = _cpu_reference(torch.tensor(x), FS, n_fft=N_FFT, mode=mode)
+        _assert_same(gpu, cpu, ("count", "idx"),
+                     (("freq", 1e-4, 1e-6), ("mag", 1e-4, 1e-5)), f"{mode} vs CPU")
+        log(f"[5 main path] {mode} B=256 ({name}): decisions equal to the CPU run; "
+            f"count>0 in {int((gpu.count > 0).sum())} windows")
+    return launches, max_err
+
+
+def phase_times(corpora: dict[str, np.ndarray], card: str) -> tuple[float, float]:
+    """Returns (kernel ms, plain ms) at H=2048, M=12."""
+    mags = centered_mags(torch.from_numpy(corpora["noisy"]).cuda()).contiguous()
+    at12 = None
+    for m in (2, 12, 128):
+        p_ms = event_ms(lambda: _prominence_select_scan_plain(mags, m))
+        k_ms = event_ms(lambda: prominence_select_scan(mags, m))
+        k2_ms = event_ms(lambda: prominence_select_scan(mags, m))
+        p2_ms = event_ms(lambda: _prominence_select_scan_plain(mags, m))
+        log(f"[6 times] select+scan B={BATCH} H={N_FFT // 2} M={m}: kernel "
+            f"{k_ms:.4f} / {k2_ms:.4f} ms, plain torch {p_ms:.4f} / {p2_ms:.4f} ms "
+            f"(median of {TIMING_RUNS}, plain-kernel-kernel-plain order; {card})")
+        if m == 12:
+            at12 = (min(k_ms, k2_ms), min(p_ms, p2_ms))
+    for name, x in corpora.items():
+        xs = torch.from_numpy(x).cuda()
+        ms = event_ms(lambda: pipeline.analyze_epoch(
+            xs, FS, n_fft=N_FFT, mode="flexible", refine=True, lowlat="never"))
+        mc = pipeline.steady_state_max_candidates(N_FFT, "flexible", BATCH)
+        fe_ms = event_ms(lambda: centered_mags(xs))
+        mags = centered_mags(xs)
+        det_ms = event_ms(lambda: pipeline.detect_from_mags(mags, FS, n_fft=N_FFT))
+        log(f"[6 times] epoch {name} B={BATCH} N={N_FFT}: {ms:.4f} ms = "
+            f"{BATCH / (ms / 1e3):.1f} windows/s (budget {mc}; front end alone "
+            f"{fe_ms:.4f} ms, detect+refine alone {det_ms:.4f} ms; median of "
+            f"{TIMING_RUNS}; {card})")
+    return at12
+
+
+def main() -> int:
+    card = phase_device()
+    phase_build()
+    corpora_err = phase_kernel_vs_plain()
+    phase_spectrum()
+    corpora = {"clean": clean_batch(BATCH), "noisy": noisy_batch(BATCH)}
+    launches, main_err = phase_main_path(corpora)
+    k_ms, p_ms = phase_times(corpora, card)
+    log(json.dumps({"kernels": [{
+        "name": "prominence_select_scan",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": KERNEL_REPLACES,
+        "launches": launches,
+        "max_abs_err": max(corpora_err, main_err),
+        "ms": k_ms,
+        "plain_ms": p_ms,
+    }]}))
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
