@@ -2,8 +2,10 @@
 
 A port of the JAX package beside it, module for module and name for name.
 It imports torch and numpy only.  The flexible-mode detector's fused
-select+scan stage runs as a hand-written CUDA kernel for Hopper (``sm_90a``)
-on CUDA tensors and as plain torch on CPU tensors.  The package picks no
+select+scan stage, and the whole single-window latency pipeline
+(:func:`analyze_window_lowlat`, flexible and rigid), run as hand-written CUDA
+kernels for Hopper (``sm_90a``) on CUDA tensors and as plain torch on CPU
+tensors.  The package picks no
 device: an epoch runs where its samples (or the ``device=`` argument) are.
 
 Quick start::
@@ -30,6 +32,7 @@ from apda_fft_tpu_torch.ops.detector_cuda import (
     prominence_peaks_fused,
     prominence_select_scan,
 )
+from apda_fft_tpu_torch.ops.latency_cuda import analyze_window_lowlat
 from apda_fft_tpu_torch.ops.fft import (
     center_and_pad,
     halfspec_magnitudes,
@@ -50,6 +53,7 @@ __all__ = [
     "ResolutionPeaks",
     "SpectralPipeline",
     "analyze_epoch",
+    "analyze_window_lowlat",
     "center_and_pad",
     "default_k",
     "detect_from_mags",

@@ -8,7 +8,9 @@ Counterpart of ``apda_fft_tpu/models/pipeline.py``.  An epoch of windows
 over the whole batch at once, on whatever device the samples are on.  On a
 CUDA device every flexible-mode detect pass goes through the hand-written
 select+scan kernel (``ops/detector_cuda.py``); on the CPU the same wrapper
-runs its plain torch version.
+runs its plain torch version.  An epoch of one full window on a CUDA device
+takes the single-window latency route instead (``ops/latency_cuda.py``):
+the whole pipeline in one kernel launch.
 
 ``mode="flexible"`` selects the prominence detector, ``mode="rigid"`` the
 resolution detector and ``mode="adaptive"`` the prominence detector with a
@@ -65,6 +67,15 @@ _TIER_GRID = (4, 6, 8, 12, 16, 24, 32, 48, 64)
 _DYNAMIC_FLOOR = 2
 #: Stats of the most recent dynamic-budget run on this thread.
 _dynamic_tls = threading.local()
+#: Largest flexible budget the single-window latency route runs.  A window
+#: that needs more goes to the batched path.  The JAX package's limit, kept
+#: so that both packages route the same windows.
+LOWLAT_MAX_BUDGET = 64
+
+
+def _lowlat_device(samples: torch.Tensor) -> bool:
+    """Whether the latency kernels run on ``samples``' device."""
+    return samples.device.type == "cuda"
 
 
 def last_dynamic_stats() -> dict:
@@ -452,9 +463,10 @@ def analyze_epoch(
       selection: only ``"auto"``, the one order-exact candidate selection.
       batch_chunk: epochs larger than this run in chunks of this many
         windows (0 disables).
-      lowlat: ``"auto"`` or ``"never"``.  The JAX package routes single-window
-        epochs through a fused whole-pipeline TPU kernel under "auto"; that
-        kernel is not ported yet, so here both values run the batched path.
+      lowlat: ``"auto"`` routes an epoch of one full float32 window on a
+        CUDA device through the single-window kernels
+        (``ops.latency_cuda.analyze_window_lowlat``, one launch per pass);
+        ``"never"`` always runs the batched path.  Decisions are the same.
       taper: "none" (reference rectangular window), "hann", "hamming" or
         "blackman", amplitude-normalized, applied after centering.
       precision: "highest" (IEEE float32 spectra, the 1e-6 contract);
@@ -531,6 +543,28 @@ def analyze_epoch(
         if table is not None:
             half_corr = torch.from_numpy(table).to(dev)
 
+    # One full window on a CUDA device: the single-window kernels, inside
+    # the envelope the JAX package routes.
+    if (
+        lowlat == "auto"
+        and mode in ("flexible", "rigid")
+        and half_corr is None  # non-dyadic rigid boundaries need the table
+        and precision == "highest"
+        and backend == "matmul"
+        and center == "auto"
+        and taper == "none"
+        and lengths is None
+        and dtype == torch.float32
+        and samples.shape[-1] == n_fft
+        and n_fft >= 64
+        and all(d == 1 for d in lead)
+        and _lowlat_device(samples)
+    ):
+        res = _analyze_lowlat(samples, fs, n_fft=n_fft, mode=mode, k=k, refine=refine,
+                              dynamic=dynamic, max_candidates=max_candidates)
+        if res is not None:
+            return res
+
     kwargs = dict(n_fft=n_fft, mode=mode, k=k, backend=backend, refine=refine,
                   center=center, batch_chunk=batch_chunk, taper=taper,
                   precision=precision)
@@ -578,6 +612,67 @@ def analyze_epoch(
         ),
         n_fft=n_fft, mode=mode, n_windows=n_windows,
     )
+
+
+def _analyze_lowlat(samples, fs, *, n_fft: int, mode: str, k: int, refine: bool,
+                    dynamic: bool, max_candidates) -> EpochResult | None:
+    """The single-window route: one kernel launch per pass, or None when
+    the window belongs to the batched path.
+
+    Windows longer than the kernel's ``LOWLAT_MAX_N`` take the batched
+    path.  Rigid runs once.  Flexible shares the batched path's sticky budget
+    table and overflow re-run, capped at ``LOWLAT_MAX_BUDGET``: a sticky
+    budget already past the cap skips the kernel, and a window that needs
+    more than the cap is handed to the batched path.
+    """
+    from apda_fft_tpu_torch.ops import latency_cuda
+
+    if n_fft > latency_cuda.LOWLAT_MAX_N:
+        return None
+    lead = samples.shape[:-1]
+    flat = samples.reshape(-1)
+    fs_scalar = fs.broadcast_to(lead).reshape(())
+
+    def run(budget: int) -> EpochResult:
+        return latency_cuda.analyze_window_lowlat(
+            flat, fs_scalar, n_fft=n_fft, mode=mode, k=k, max_candidates=budget,
+            refine=refine,
+        )
+
+    cap = LOWLAT_MAX_BUDGET
+    key = (n_fft, mode)
+    res = None
+    if mode == "rigid":
+        res = run(_DYNAMIC_FLOOR)  # budget unused by rigid
+    elif dynamic and _dynamic_budget.get(key, 0) <= cap:
+        budget = min(_dynamic_budget.get(key, _DYNAMIC_FLOOR), cap)
+        passes = 0
+        while True:
+            passes += 1
+            res = run(budget)
+            # One readback per pass: both are [1], so this is their max.
+            n_req, n_max = torch.cat([res.n_required, res.n_candidates]).tolist()
+            if n_req <= budget:
+                break
+            if n_req > cap:
+                return None  # the batched path re-runs it
+            budget = min(
+                max(_pow2_at_least(n_req), _dynamic_budget_hwm.get(key, 0), _DYNAMIC_FLOOR),
+                cap,
+            )
+        _dynamic_budget[key] = min(max(_pow2_at_least(n_req), _DYNAMIC_FLOOR), n_fft // 2)
+        _dynamic_budget_hwm[key] = max(_dynamic_budget_hwm.get(key, 0), budget)
+        stats = last_dynamic_stats()
+        stats.clear()
+        stats.update(
+            candidate_budget=budget, n_candidates_max=n_max,
+            n_required_max=n_req, budget_passes=passes,
+        )
+    elif isinstance(max_candidates, int) and max_candidates <= cap:
+        res = run(max_candidates)
+    if res is None:
+        return None
+    return EpochResult(*(x.reshape(lead + x.shape[1:]) for x in res))
 
 
 def _run_dynamic(run_pass, *, n_fft: int, mode: str, n_windows: int) -> EpochResult:
@@ -653,8 +748,8 @@ class PipelineConfig:
     center: str = "auto"
     #: None = "auto", the port's one order-exact selection.
     selection: str | None = None
-    #: "auto" or "never"; both run the batched path until the latency kernel
-    #: is ported.
+    #: "auto" (one full window on a CUDA device takes the latency kernels)
+    #: or "never".
     lowlat: str = "auto"
     taper: str = "none"
     precision: str = "highest"

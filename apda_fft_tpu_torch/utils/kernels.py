@@ -4,9 +4,11 @@ Each source is compiled at first use with ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface, loaded with ``ctypes`` - the
 same pattern as the JAX package's native data loader
 (``apda_fft_tpu/io/native.py``), without any PyTorch headers, so a build
-takes seconds.  Libraries land in ``apda_fft_tpu_torch/_build/`` under a name
-that carries a hash of the source and the flags, so an edited source or flag
-set is rebuilt and never confused with an old build.
+takes seconds.  Sources may include the shared headers ``csrc/*.cuh``.
+Libraries land in ``apda_fft_tpu_torch/_build/`` under a name that carries a
+hash of the source, every header and the flags, so an edited source, header
+or flag set is rebuilt and never confused with an old build.  Two different
+kernels build at the same time when two threads load them.
 
 There is no fallback here: a missing ``nvcc`` or a failed build raises.
 """
@@ -14,6 +16,7 @@ There is no fallback here: a missing ``nvcc`` or a failed build raises.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -32,6 +35,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -52,10 +56,15 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> str:
     """Where ``csrc/<name>.cu`` builds to: the name carries a hash of the
-    source bytes and the compiler flags."""
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + "\0".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
+    source bytes, the bytes of every ``csrc/*.cuh`` header and the compiler
+    flags."""
+    h = hashlib.sha256()
+    for path in [os.path.join(CSRC_DIR, name + ".cu"),
+                 *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read() + b"\0")
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _build(src: str, out: str) -> None:
@@ -65,7 +74,7 @@ def _build(src: str, out: str) -> None:
     tmp = f"{out}.tmp.{os.getpid()}"
     try:
         proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+            [nvcc_path(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, src],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:
@@ -81,6 +90,8 @@ def _build(src: str, out: str) -> None:
 def load(name: str) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu``, building it on first use."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is None:
             path = library_path(name)

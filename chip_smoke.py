@@ -6,8 +6,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 1. device: a CUDA device must be present; prints the card's name and power
    limit (``nvidia-smi``);
-2. build: compiles ``apda_fft_tpu_torch/csrc/prominence_select_scan.cu``
-   with nvcc (sm_90a) and prints the seconds it took;
+2. build: compiles ``apda_fft_tpu_torch/csrc/prominence_select_scan.cu`` and
+   ``lowlat_window.cu`` with nvcc (sm_90a), both at once, and prints the
+   seconds each took;
 3. kernel vs plain on the card: the select+scan kernel against its plain
    torch version on four spectrum corpora at H in {32, 128, 2048, 32768}
    and M in {2, 12, 32, 128} - integers equal, floats within rtol 1e-6;
@@ -24,8 +25,27 @@ Phases, in order; any failure raises and the exit code is non-zero:
 6. times (CUDA events, warm-up, median of 20): kernel vs plain at H=2048,
    M in {2, 12, 128}, and whole epochs in windows/s beside the front end
    and the detect stage alone;
-7. one JSON line describing the kernel, then the result line
-   ``{"ok": true, "device": {...}}``.
+7. latency kernels vs plain on the card: ``analyze_window_lowlat`` (both
+   modes, refine on) against its plain torch version on modal, noise,
+   impulse and flat windows at N in {64, 1024, 4096, 16384, 65536} and
+   flexible budgets {2, 8, 16, 64} - integers equal, ``mag`` within rtol
+   1e-5 (one 4-dp step where rounded), ``freq`` within one 4-dp step,
+   damping and q within one 2-dp step, ``refined_freq`` within 1e-3 Hz;
+8. the single-window route: ``analyze_epoch(x[None], fs)`` with the default
+   ``lowlat`` for cfg1 (N=1024, rigid) and cfg2 (N=4096, flexible, refine)
+   and on ``tests/signals.modal_signal`` windows at (1024, 500),
+   (4096, 500) and (2048, 62.5) in both modes: both latency kernels must
+   launch; every kernel call of the route is held against the plain
+   version; decisions equal ``lowlat="never"`` on the card and the float64
+   oracle; a window needing 71 slots goes to the batched path and still
+   equals ``lowlat="never"``;
+9. latency times for cfg1 and cfg2: the kernel alone (device time from
+   ``torch.profiler``, and CUDA events over back-to-back calls), the routed
+   ``analyze_epoch``, ``lowlat="never"`` and the plain version (host wall
+   clock with synchronize, median of 50), and the flexible kernel at
+   M=64, N=4096;
+10. one JSON line describing the three kernels, the card line, then the
+   result line ``{"ok": true, "device": {...}}``.
 
 It needs one card and no network, and imports neither JAX nor the JAX
 package (the oracle in ``tests/oracle.py`` is plain numpy).
@@ -33,6 +53,7 @@ package (the oracle in ``tests/oracle.py`` is plain numpy).
 
 from __future__ import annotations
 
+import concurrent.futures
 import importlib.util
 import json
 import os
@@ -46,7 +67,7 @@ import numpy as np
 import torch
 
 from apda_fft_tpu_torch.models import pipeline
-from apda_fft_tpu_torch.ops import detector_cuda
+from apda_fft_tpu_torch.ops import detector_cuda, latency_cuda
 from apda_fft_tpu_torch.ops.detector_cuda import (
     _prominence_select_scan_plain,
     prominence_select_scan,
@@ -60,7 +81,13 @@ FS = 500.0
 BATCH = 2048
 KERNEL_SOURCE = "apda_fft_tpu_torch/csrc/prominence_select_scan.cu"
 KERNEL_REPLACES = "apda_fft_tpu/ops/detector_pallas.py:360"
+LOWLAT_SOURCE = "apda_fft_tpu_torch/csrc/lowlat_window.cu"
+LOWLAT_REPLACES = {
+    "lowlat_flexible": "apda_fft_tpu/ops/latency_pallas.py:467",
+    "lowlat_rigid": "apda_fft_tpu/ops/latency_pallas.py:448",
+}
 TIMING_RUNS = 20
+WALL_RUNS = 50
 
 
 def log(msg: str) -> None:
@@ -70,12 +97,13 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------- corpora
 
 
-def clean_batch(batch: int) -> np.ndarray:
-    """bench.py's clean epoch: two tones + DC + light noise, seed 42."""
+def clean_batch(batch: int, n: int = N_FFT) -> np.ndarray:
+    """bench.py's clean epoch: two tones + DC + light noise, seed 42 (one
+    such window is the BASELINE configurations' window)."""
     rng = np.random.default_rng(42)
-    t = np.arange(N_FFT) / FS
+    t = np.arange(n) / FS
     base = np.sin(2 * np.pi * 12.3 * t) + 0.6 * np.sin(2 * np.pi * 47.7 * t) + 0.1
-    return (base[None, :] + 0.05 * rng.standard_normal((batch, N_FFT))).astype(np.float32)
+    return (base[None, :] + 0.05 * rng.standard_normal((batch, n))).astype(np.float32)
 
 
 def noisy_batch(batch: int) -> np.ndarray:
@@ -158,11 +186,21 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """Builds both sources at once, one nvcc each."""
+    def build(name, load):
+        t0 = time.perf_counter()
+        load()
+        return name, time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    path = kernels.library_path("prominence_select_scan")
-    detector_cuda._kernel_fn()
-    log(f"[2 build] {os.path.relpath(path, ROOT)} in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {kernels.nvcc_path()})")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        futures = [pool.submit(build, "prominence_select_scan", detector_cuda._kernel_fn),
+                   pool.submit(build, "lowlat_window", latency_cuda._kernel_fn)]
+        for fut in futures:
+            name, sec = fut.result()
+            log(f"[2 build] {os.path.relpath(kernels.library_path(name), ROOT)} in "
+                f"{sec:.2f} s")
+    log(f"[2 build] both in {time.perf_counter() - t0:.2f} s (nvcc {kernels.nvcc_path()})")
 
 
 def _kernel_equals_plain(mags: torch.Tensor, m: int, got, case: str) -> float:
@@ -266,12 +304,17 @@ def _cpu_reference(*args, **kwargs):
         torch.set_num_threads(threads)
 
 
-def _load_oracle():
-    spec = importlib.util.spec_from_file_location(
-        "apda_oracle", os.path.join(ROOT, "tests", "oracle.py"))
+def _load_module(name: str, filename: str):
+    """A plain-numpy helper of ``tests/`` loaded by path (``tests`` is not a
+    package the port depends on)."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "tests", filename))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _load_oracle():
+    return _load_module("apda_oracle", "oracle.py")
 
 
 def phase_main_path_kernel_calls(calls) -> float:
@@ -401,6 +444,244 @@ def phase_times(corpora: dict[str, np.ndarray], card: str) -> tuple[float, float
     return at12
 
 
+# ---------------------------------------------------------------- latency route
+
+
+LOWLAT_NS = (64, 1024, 4096, 16384, 65536)
+LOWLAT_BUDGETS = (2, 8, 16, 64)
+
+
+def lowlat_window(n: int, kind: str, seed: int = 7) -> np.ndarray:
+    """One window: modal (two tones + noise + offset), noise, impulse
+    (8 sparse spikes) or flat (a constant: no candidates)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / FS
+    if kind == "modal":
+        x = (np.sin(2 * np.pi * 0.025 * FS * t) + 0.6 * np.sin(2 * np.pi * 0.095 * FS * t)
+             + 0.05 * rng.standard_normal(n) + 3.0)
+    elif kind == "noise":
+        x = rng.standard_normal(n)
+    elif kind == "impulse":
+        x = np.zeros(n)
+        x[rng.integers(0, n, 8)] = 5.0 * rng.standard_normal(8)
+    else:
+        x = np.full(n, 2.5)
+    return x.astype(np.float32)
+
+
+def overflow_window(n: int = 4096) -> np.ndarray:
+    """71 bin-exact tones above bin 1000: every candidate fails the damping
+    floor, so the walk never completes and needs all 71 slots."""
+    t = np.arange(n) / FS
+    return sum(np.sin(2 * np.pi * (b * FS / n) * t)
+               for b in range(1100, 1313, 3)).astype(np.float32)
+
+
+def _lowlat_plain(x, fs, mode, k, budget, refine):
+    return latency_cuda._analyze_window_lowlat_plain(
+        x, fs, n_fft=x.shape[-1], mode=mode, k=k, budget=min(budget, x.shape[-1] // 2),
+        refine=refine)
+
+
+def _lowlat_equals_plain(got, want, mode: str, case: str) -> float:
+    """Integers equal; ``mag`` within rtol 1e-5 (the kernel's front end sums
+    in another order than ``torch.matmul``) plus one 4-dp step where it is
+    rounded (flexible); ``freq`` within one 4-dp step, damping and q within
+    one 2-dp step; ``refined_freq`` within 1e-3 Hz; prominence within
+    1e-5 of the largest magnitude.  Returns the max abs float difference."""
+    g = {f: getattr(got, f).cpu().numpy() for f in got._fields}
+    w = {f: getattr(want, f).cpu().numpy() for f in want._fields}
+    for f in ("count", "idx", "n_candidates", "n_required"):
+        np.testing.assert_array_equal(g[f], w[f], err_msg=f"{case} {f}")
+    rounded = mode == "flexible"
+    scale = max(1.0, float(np.abs(w["mag"]).max(initial=0.0)))
+    tol = {"mag": (1e-4 if rounded else 0.0, 1e-5), "freq": (1e-4, 1e-6),
+           "damping": (1e-2, 0.0), "q_factor": (1e-2, 0.0),
+           "refined_freq": (1e-3, 0.0), "prominence": (1e-5 * scale, 1e-5)}
+    err = 0.0
+    for f, (atol, rtol) in tol.items():
+        np.testing.assert_allclose(g[f], w[f], atol=atol, rtol=rtol, err_msg=f"{case} {f}")
+        err = max(err, float(np.abs(g[f] - w[f]).max(initial=0.0)))
+    return err
+
+
+def phase_lowlat_vs_plain() -> dict[str, float]:
+    """Both latency kernels against their plain version on the card; returns
+    the max abs float difference per kernel."""
+    fs = torch.tensor(FS, device="cuda")
+    worst = {"lowlat_flexible": 0.0, "lowlat_rigid": 0.0}
+    cases = 0
+    for n in LOWLAT_NS:
+        for kind in ("modal", "noise", "impulse", "flat"):
+            x = torch.from_numpy(lowlat_window(n, kind)).cuda()
+            line = []
+            for mode, budgets in (("rigid", (2,)), ("flexible", LOWLAT_BUDGETS)):
+                for m in budgets:
+                    got = latency_cuda.analyze_window_lowlat(
+                        x, fs, mode=mode, max_candidates=m, refine=True)
+                    want = _lowlat_plain(x, fs, mode, got.k, m, True)
+                    err = _lowlat_equals_plain(got, want, mode, f"{kind} N={n} {mode} M={m}")
+                    key = f"lowlat_{mode}"
+                    worst[key] = max(worst[key], err)
+                    line.append(f"{mode[0]}{m if mode == 'flexible' else ''}:"
+                                f"{int(got.count[0])}/{int(got.n_candidates[0])}")
+                    cases += 1
+            log(f"[7 lowlat==plain] {kind:7s} N={n:5d}: equal (count/n_cand {' '.join(line)})")
+    log(f"[7 lowlat==plain] all {cases} cases equal; launches {latency_cuda.launches}; "
+        f"max abs float diff {worst}")
+    return worst
+
+
+def phase_route(oracle, signals) -> tuple[dict[str, int], float]:
+    """The single-window route through ``analyze_epoch`` on the card.
+    Returns the latency kernels' launches in it and the max abs float
+    difference of its kernel calls against the plain version."""
+    calls = []
+    wrapper = latency_cuda.analyze_window_lowlat
+
+    def tapped(x, fs, **kw):
+        out = wrapper(x, fs, **kw)
+        calls.append((x.clone(), fs.clone(), kw, type(out)(*(o.clone() for o in out))))
+        return out
+
+    def route(x, mode, refine, fs=FS):
+        xs = torch.from_numpy(x[None]).cuda()
+        got = pipeline.analyze_epoch(xs, fs, n_fft=x.shape[-1], mode=mode, refine=refine)
+        never = pipeline.analyze_epoch(xs, fs, n_fft=x.shape[-1], mode=mode, refine=refine,
+                                       lowlat="never")
+        _assert_same(got, never, ("count", "idx", "n_candidates", "n_required"),
+                     (("freq", 1e-4, 1e-6), ("mag", 1e-4, 1e-5), ("damping", 1e-2, 0),
+                      ("q_factor", 1e-2, 0), ("refined_freq", 1e-3, 0)),
+                     f"route N={x.shape[-1]} {mode} vs lowlat=never")
+        return got
+
+    pipeline.reset_dynamic_state()
+    latency_cuda.analyze_window_lowlat = tapped
+    for key in latency_cuda.launches:
+        latency_cuda.launches[key] = 0
+    try:
+        for name, n, mode, refine in (("cfg1", 1024, "rigid", False),
+                                      ("cfg2", 4096, "flexible", True)):
+            before = dict(latency_cuda.launches)
+            res = route(clean_batch(1, n)[0], mode, refine)
+            launched = latency_cuda.launches[f"lowlat_{mode}"] - before[f"lowlat_{mode}"]
+            assert launched > 0, f"{name} did not go through the {mode} latency kernel"
+            log(f"[8 route] {name} N={n} {mode}: {launched} launch(es); idx "
+                f"{res.idx[0].tolist()}, freq {res.freq[0].tolist()}; equal to lowlat=never")
+        for n, fs, seed in ((1024, 500.0, 0), (4096, 500.0, 3), (2048, 62.5, 6)):
+            x = signals.modal_signal(n, fs, seed=seed).astype(np.float32)
+            for mode in ("rigid", "flexible"):
+                before = sum(latency_cuda.launches.values())
+                res = route(x, mode, True, fs)
+                want = oracle.oracle_analyze(x.astype(np.float64), fs, mode)
+                c = int(res.count[0])
+                assert res.idx[0, :c].tolist() == [p["idx"] for p in want], (n, fs, mode)
+                np.testing.assert_allclose(res.freq[0, :c].cpu().numpy(),
+                                           [p["freq"] for p in want], atol=1e-4, rtol=1e-6)
+                assert sum(latency_cuda.launches.values()) > before, (n, fs, mode)
+                log(f"[8 route] modal_signal N={n} fs={fs} {mode}: idx "
+                    f"{res.idx[0, :c].tolist()} equal to the float64 oracle and lowlat=never")
+        before = latency_cuda.launches["lowlat_flexible"]
+        route(overflow_window(), "flexible", True)
+        launches = dict(latency_cuda.launches)
+        budget = pipeline.dynamic_state()["budget"][(4096, "flexible")]
+        assert launches["lowlat_flexible"] > before
+        assert budget > pipeline.LOWLAT_MAX_BUDGET, budget
+        log(f"[8 route] 71-slot window: the kernel reported it, the batched path re-ran it "
+            f"(budget {budget}); equal to lowlat=never")
+    finally:
+        latency_cuda.analyze_window_lowlat = wrapper
+        pipeline.reset_dynamic_state()
+    log(f"[8 route] latency kernel launches on the route: {launches}")
+    assert all(v > 0 for v in launches.values()), launches
+
+    worst = 0.0
+    for x, fs, kw, got in calls:
+        mode = kw["mode"]
+        want = _lowlat_plain(x, fs, mode, kw["k"], kw["max_candidates"], kw["refine"])
+        worst = max(worst, _lowlat_equals_plain(
+            got, want, mode, f"route call N={x.shape[-1]} {mode} M={kw['max_candidates']}"))
+    log(f"[8 route] all {len(calls)} kernel calls of the route equal the plain version; "
+        f"max abs float diff {worst:.3g}")
+    return launches, worst
+
+
+def _wall_ms(fn, runs: int = WALL_RUNS) -> float:
+    """Median host wall time of ``fn()`` followed by a synchronize, in ms."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _kernel_device_ms(fn, name: str, runs: int = 20) -> float:
+    """Mean device time per launch of the CUDA kernel whose name holds
+    ``name``, from ``torch.profiler`` over ``runs`` calls of ``fn``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.device_time for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name]
+    assert len(times) == runs, (name, len(times))
+    return sum(times) / len(times) / 1e3
+
+
+def phase_lowlat_times(card: str) -> dict[str, tuple[float, float]]:
+    """Latency per window four ways for cfg1 and cfg2, and the flexible
+    kernel at M=64.  Returns {kernel: (kernel ms, plain ms)} (CUDA events)."""
+    fs = torch.tensor(FS, device="cuda")
+    out = {}
+    for name, n, mode, refine in (("cfg1", 1024, "rigid", False),
+                                  ("cfg2", 4096, "flexible", True)):
+        x = torch.from_numpy(clean_batch(1, n)[0]).cuda()
+        pipeline.reset_dynamic_state()
+        routed = lambda: pipeline.analyze_epoch(x[None], FS, mode=mode, refine=refine)  # noqa: E731
+        routed()
+        budget = pipeline.dynamic_state()["budget"].get((n, mode), 2)
+        kernel = lambda: latency_cuda.analyze_window_lowlat(  # noqa: E731
+            x, fs, mode=mode, max_candidates=budget, refine=refine)
+        plain = lambda: _lowlat_plain(x, fs, mode, pipeline.default_k(mode),  # noqa: E731
+                                      budget, refine)
+        never = lambda: pipeline.analyze_epoch(  # noqa: E731
+            x[None], FS, mode=mode, refine=refine, lowlat="never")
+        dev_ms = _kernel_device_ms(kernel, f"lowlat_{mode}")
+        k_ms, p_ms = event_ms(kernel), event_ms(plain)
+        k2_ms, p2_ms = event_ms(kernel), event_ms(plain)
+        walls = {label: _wall_ms(f) for label, f in
+                 (("routed", routed), ("never", never), ("plain", plain), ("routed2", routed))}
+        log(f"[9 times] {name} N={n} {mode}{' refine' if refine else ''} budget {budget}: "
+            f"kernel device {dev_ms:.4f} ms (profiler, mean of 20); kernel call "
+            f"{k_ms:.4f} / {k2_ms:.4f} ms, plain {p_ms:.4f} / {p2_ms:.4f} ms (CUDA events, "
+            f"median of {TIMING_RUNS}); host wall with synchronize, median of {WALL_RUNS}: "
+            f"routed analyze_epoch {walls['routed']:.4f} / {walls['routed2']:.4f} ms, "
+            f"lowlat=never {walls['never']:.4f} ms, plain {walls['plain']:.4f} ms; {card}")
+        out[f"lowlat_{mode}"] = (min(k_ms, k2_ms), min(p_ms, p2_ms))
+    x = torch.from_numpy(overflow_window()).cuda()
+    kernel = lambda: latency_cuda.analyze_window_lowlat(  # noqa: E731
+        x, fs, mode="flexible", max_candidates=64, refine=True)
+    res = kernel()
+    assert int(res.n_candidates[0]) >= 64 and int(res.count[0]) < 4  # all 64 rounds run
+    dev_ms = _kernel_device_ms(kernel, "lowlat_flexible")
+    p_ms = event_ms(lambda: _lowlat_plain(x, fs, "flexible", 4, 64, True))
+    log(f"[9 times] flexible kernel at M=64, N=4096 (71-candidate window, all 64 rounds): "
+        f"device {dev_ms:.4f} ms (profiler), call {event_ms(kernel):.4f} ms, plain "
+        f"{p_ms:.4f} ms (CUDA events); {card}")
+    pipeline.reset_dynamic_state()
+    return out
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -409,7 +690,11 @@ def main() -> int:
     corpora = {"clean": clean_batch(BATCH), "noisy": noisy_batch(BATCH)}
     launches, main_err = phase_main_path(corpora)
     k_ms, p_ms = phase_times(corpora, card)
-    log(json.dumps({"kernels": [{
+    lowlat_err = phase_lowlat_vs_plain()
+    lowlat_launches, route_err = phase_route(
+        _load_oracle(), _load_module("apda_signals", "signals.py"))
+    lowlat_times = phase_lowlat_times(card)
+    rows = [{
         "name": "prominence_select_scan",
         "route": "cuda",
         "source": KERNEL_SOURCE,
@@ -418,7 +703,19 @@ def main() -> int:
         "max_abs_err": max(corpora_err, main_err),
         "ms": k_ms,
         "plain_ms": p_ms,
-    }]}))
+    }]
+    for name in ("lowlat_flexible", "lowlat_rigid"):
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": LOWLAT_SOURCE,
+            "replaces": LOWLAT_REPLACES[name],
+            "launches": lowlat_launches[name],
+            "max_abs_err": max(lowlat_err[name], route_err),
+            "ms": lowlat_times[name][0],
+            "plain_ms": lowlat_times[name][1],
+        })
+    log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
