@@ -2,11 +2,13 @@
 
 A port of the JAX package beside it, module for module and name for name.
 It imports torch and numpy only.  The flexible-mode detector's fused
-select+scan stage, and the whole single-window latency pipeline
-(:func:`analyze_window_lowlat`, flexible and rigid), run as hand-written CUDA
-kernels for Hopper (``sm_90a``) on CUDA tensors and as plain torch on CPU
-tensors.  The package picks no
-device: an epoch runs where its samples (or the ``device=`` argument) are.
+select+scan stage, the fused four-step front end (``backend="pallas"``), the
+pre-selected prominence scans (:func:`prominence_peaks_batch`) and the whole
+single-window latency pipeline (:func:`analyze_window_lowlat`, flexible and
+rigid) run as hand-written CUDA kernels for Hopper (``sm_90a``) on CUDA
+tensors and as plain torch on CPU tensors.  An epoch runs on the card: a
+tensor's on its own device, an array or list on CUDA unless ``device="cpu"``
+is given (without a CUDA device an array raises ``RuntimeError``).
 
 Quick start::
 
@@ -29,6 +31,7 @@ from apda_fft_tpu_torch.models.pipeline import (
 )
 from apda_fft_tpu_torch.models.results import EpochResult
 from apda_fft_tpu_torch.ops.detector_cuda import (
+    prominence_peaks_batch,
     prominence_peaks_fused,
     prominence_select_scan,
 )
@@ -63,6 +66,7 @@ __all__ = [
     "load_dynamic_state",
     "next_pow2",
     "prominence_peaks",
+    "prominence_peaks_batch",
     "prominence_peaks_fused",
     "prominence_select_scan",
     "reset_dynamic_state",

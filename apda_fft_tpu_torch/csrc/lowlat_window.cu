@@ -42,6 +42,7 @@
 // rounded IEEE operations; build without fast math.
 
 #include "detector_common.cuh"
+#include "fourstep_common.cuh"
 
 namespace {
 
@@ -101,73 +102,16 @@ __device__ Arrays carve(float* smem, float* ws, int n, bool rigid, bool mags_sme
   return a;
 }
 
-struct Tables {
-  const float* cs1;  // [2*n1, n1]: c1 rows, then s1 rows
-  const float* twc;  // [n1, n2]
-  const float* tws;  // [n1, n2]
-  const float* c2h;  // [n2, n2/2]
-  const float* s2h;  // [n2, n2/2]
-};
-
 // Mean-centred four-step DFT of x -> mags[k], k = k1 + n1*k2 < n/2, DC 0.
 // b is the [2*n1, n2] intermediate.  Ends with a __syncthreads.
 template <typename S>
-__device__ void front_end(const float* __restrict__ x, int n1, int n2, Tables t, float* b,
-                          float* mags, S& sc) {
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
+__device__ void front_end(const float* __restrict__ x, int n1, int n2, FourStepTables t,
+                          float* b, float* mags, S& sc) {
   const int n = n1 * n2;
   float s = 0.f;
-  for (int i = tid; i < n; i += nt) s = __fadd_rn(s, x[i]);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) s = __fadd_rn(s, x[i]);
   s = block_reduce(s, SumF(), sc.f);
-  const float mean = __fdiv_rn(s, (float)n);
-
-  // Step 1: b[r, m2] = sum_m1 cs1[r, m1] * (x[m2 + n2*m1] - mean).
-  // Neighbouring threads take neighbouring m2: the x reads coalesce and
-  // the table row is a broadcast.
-  for (int o = tid; o < 2 * n; o += nt) {
-    const int r = o / n2;
-    const int m2 = o - r * n2;
-    const float* row = t.cs1 + (size_t)r * n1;
-    float acc = 0.f;
-    for (int m1 = 0; m1 < n1; ++m1) {
-      acc = fmaf(row[m1], __fsub_rn(x[m2 + (size_t)n2 * m1], mean), acc);
-    }
-    b[o] = acc;
-  }
-  __syncthreads();
-  // Step 2: twiddle W_n^{k1*m2}, in place: [br; bi] -> [cr; ci].
-  for (int o = tid; o < n; o += nt) {
-    const float br = b[o], bi = b[n + o];
-    const float c = t.twc[o], sn = t.tws[o];
-    b[o] = br * c - bi * sn;
-    b[n + o] = br * sn + bi * c;
-  }
-  __syncthreads();
-  // Step 3 against the half tables, then |X|.  Neighbouring threads take
-  // neighbouring k2: the table reads coalesce, the cr/ci row is a broadcast.
-  const int n2h = n2 / 2;
-  const int h = n1 * n2h;
-  for (int o = tid; o < h; o += nt) {
-    const int k1 = o / n2h;
-    const int k2 = o - k1 * n2h;
-    const float* cr = b + (size_t)k1 * n2;
-    const float* ci = b + n + (size_t)k1 * n2;
-    float pr = 0.f, pi = 0.f, qr = 0.f, qi = 0.f;
-    for (int m2 = 0; m2 < n2; ++m2) {
-      const float c = t.c2h[(size_t)m2 * n2h + k2];
-      const float sn = t.s2h[(size_t)m2 * n2h + k2];
-      pr = fmaf(cr[m2], c, pr);
-      qr = fmaf(cr[m2], sn, qr);
-      pi = fmaf(ci[m2], c, pi);
-      qi = fmaf(ci[m2], sn, qi);
-    }
-    const float dr = __fsub_rn(pr, qi);
-    const float di = __fadd_rn(qr, pi);
-    const int k = k1 + n1 * k2;
-    mags[k] = k == 0 ? 0.f : __fsqrt_rn(__fadd_rn(__fmul_rn(dr, dr), __fmul_rn(di, di)));
-  }
-  __syncthreads();
+  fourstep_halfspec<true>(x, __fdiv_rn(s, (float)n), n1, n2, t, b, mags);
 }
 
 __device__ __forceinline__ float round_dec(float v, float scale) {
@@ -221,7 +165,7 @@ __device__ Out outputs(int* iout, float* fout, int k) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-lowlat_flexible_kernel(const float* __restrict__ x, int n1, int n2, Tables t,
+lowlat_flexible_kernel(const float* __restrict__ x, int n1, int n2, FourStepTables t,
                        const float* __restrict__ fs, int k, int m_budget, int refine,
                        int* iout, float* fout, float* ws, bool mags_smem, bool b_smem) {
   extern __shared__ float smem[];
@@ -308,7 +252,7 @@ lowlat_flexible_kernel(const float* __restrict__ x, int n1, int n2, Tables t,
 }
 
 __global__ void __launch_bounds__(kThreads)
-lowlat_rigid_kernel(const float* __restrict__ x, int n1, int n2, Tables t,
+lowlat_rigid_kernel(const float* __restrict__ x, int n1, int n2, FourStepTables t,
                     const float* __restrict__ fs, int k, int refine, int* iout, float* fout,
                     float* ws, bool mags_smem, bool work_smem, bool b_smem) {
   extern __shared__ float smem[];
@@ -422,7 +366,7 @@ int apda_lowlat_window(int rigid, const float* x, int n1, int n2, const float* c
   if (!l.mags_smem || (l.ws_floats > 0 && ws == nullptr) || k < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  const Tables t = {cs1, twc, tws, c2h, s2h};
+  const FourStepTables t = {cs1, twc, tws, c2h, s2h};
   const cudaStream_t s = (cudaStream_t)stream;
   if (rigid) {
     // Dynamic plus static shared memory past 48 KB needs the opt-in.

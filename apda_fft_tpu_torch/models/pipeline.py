@@ -5,12 +5,14 @@ Counterpart of ``apda_fft_tpu/models/pipeline.py``.  An epoch of windows
 
     center (mean or median) -> pad -> taper -> |DFT| half-spectrum -> detect -> refine
 
-over the whole batch at once, on whatever device the samples are on.  On a
+over the whole batch at once.  A tensor's epoch runs on its device; an array
+or list runs on the card unless the caller passes ``device="cpu"``.  On a
 CUDA device every flexible-mode detect pass goes through the hand-written
-select+scan kernel (``ops/detector_cuda.py``); on the CPU the same wrapper
-runs its plain torch version.  An epoch of one full window on a CUDA device
-takes the single-window latency route instead (``ops/latency_cuda.py``):
-the whole pipeline in one kernel launch.
+select+scan kernel (``ops/detector_cuda.py``) and ``backend="pallas"`` runs
+the fused front-end kernel (``ops/fft_cuda.py``); on the CPU the same
+wrappers run their plain torch versions.  An epoch of one full window on a
+CUDA device takes the single-window latency route instead
+(``ops/latency_cuda.py``): the whole pipeline in one kernel launch.
 
 ``mode="flexible"`` selects the prominence detector, ``mode="rigid"`` the
 resolution detector and ``mode="adaptive"`` the prominence detector with a
@@ -71,6 +73,25 @@ _dynamic_tls = threading.local()
 #: that needs more goes to the batched path.  The JAX package's limit, kept
 #: so that both packages route the same windows.
 LOWLAT_MAX_BUDGET = 64
+
+
+def _placed(x, device: torch.device | str | None, dtype: torch.dtype | None = None):
+    """``x`` as a tensor on ``device`` when given, else a tensor where it
+    lies, else (an array or list) on the card.
+
+    The port runs on CUDA unless the caller asks for the CPU; without a
+    CUDA device an array raises instead of carrying on there silently.
+    """
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device or x.device, dtype=dtype)
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on the card by default; pass a CPU tensor "
+                "(or device='cpu' to analyze_epoch / PipelineConfig) to run on the CPU"
+            )
+        device = "cuda"
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
 def _lowlat_device(samples: torch.Tensor) -> bool:
@@ -390,8 +411,8 @@ def detect_from_mags(
     """Detector + finalize stage on precomputed half-spectrum magnitudes
     ``[B, H]`` (``|FFT|[:, :n_fft//2]``, DC zeroed), with the same dynamic
     budget as :func:`analyze_epoch` (shared tables); an int pins a static
-    budget."""
-    mags = torch.as_tensor(mags)
+    budget.  A tensor runs where it lies, an array on the card."""
+    mags = _placed(mags, None)
     if mags.dim() != 2:
         raise ValueError(f"mags must be [B, H], got shape {tuple(mags.shape)}")
     if mode not in MODES:
@@ -443,14 +464,18 @@ def analyze_epoch(
     Args:
       samples: ``[..., L]`` real acceleration windows (any leading batch
         shape), a tensor or array.  The epoch runs on ``device`` when given,
-        else on the device of ``samples`` (a numpy array lands on the CPU).
+        else on the device of a tensor, else (an array or list) on CUDA;
+        with no CUDA device an array raises ``RuntimeError`` unless
+        ``device="cpu"`` is given.
       fs: sampling rate in Hz - scalar or broadcastable to the batch shape.
       n_fft: FFT length (power of two); defaults to ``next_pow2(L)``.
       mode: ``"flexible"`` (prominence detector, k=4), ``"rigid"``
         (resolution detector, k=5) or ``"adaptive"`` (prominence with
         per-window resolution fallback).
-      backend: ``"matmul"`` (four-step, default) or ``"xla"``
-        (``torch.fft.rfft``); ``"pallas"`` is not ported yet and raises.
+      backend: ``"matmul"`` (four-step, default), ``"xla"``
+        (``torch.fft.rfft``) or ``"pallas"`` (the fused front-end kernel of
+        ``ops.fft_cuda``, N a power of two >= 64; an epoch of one window
+        then takes the batched path, as in the JAX package).
       max_candidates: None/``"dynamic"`` (default) sizes the flexible
         candidate budget from the data, one stacked readback per pass; an
         int pins a static budget (check ``n_candidates``).
@@ -480,10 +505,7 @@ def analyze_epoch(
     Returns:
       :class:`EpochResult` with batch-shaped tensors on the epoch's device.
     """
-    if isinstance(samples, torch.Tensor):
-        samples = samples.to(device=device or samples.device, dtype=dtype)
-    else:
-        samples = torch.as_tensor(np.asarray(samples), dtype=dtype, device=device)
+    samples = _placed(samples, device, dtype)
     dev = samples.device
     if samples.dim() < 2:
         samples = samples[None, :]
@@ -753,6 +775,9 @@ class PipelineConfig:
     lowlat: str = "auto"
     taper: str = "none"
     precision: str = "highest"
+    #: Where an array epoch runs (as ``analyze_epoch``'s ``device``): None
+    #: is the card; a tensor's epoch runs on its device.
+    device: Any = None
 
     @classmethod
     def from_gateway_flag(cls, is_flexibile_structure: bool, **kw) -> "PipelineConfig":
@@ -786,6 +811,7 @@ class SpectralPipeline:
                 max_candidates=cfg.max_candidates, refine=cfg.refine, lengths=lengths,
                 dtype=cfg.dtype, center=cfg.center, selection=cfg.selection or "auto",
                 lowlat=cfg.lowlat, taper=cfg.taper, precision=cfg.precision,
+                device=cfg.device,
             )
         self.last_metrics = {**self._metrics.last, **last_dynamic_stats()}
         return result

@@ -1,15 +1,22 @@
-"""Fused select+scan detector: the hand-written CUDA kernel and its plain twin.
+"""The prominence detector's CUDA kernels and their plain twins.
 
-Counterpart of ``apda_fft_tpu/ops/detector_pallas.py``'s
-``prominence_select_scan_pallas`` and ``prominence_peaks_fused_pallas``.
-The kernel (``csrc/prominence_select_scan.cu``) runs the threshold,
-candidate selection and prominence/width scans of every window in one
-launch, one thread block per window; the finalize stage stays in torch on
-the small ``[B, M]`` outputs.
+Counterpart of ``apda_fft_tpu/ops/detector_pallas.py``:
 
-Dispatch is by the tensor's device: a CPU tensor runs
-:func:`_prominence_select_scan_plain`; a CUDA tensor launches the kernel or
-raises.  ``launches`` counts kernel launches.
+* :func:`prominence_select_scan` (``prominence_select_scan_pallas``) - the
+  fused kernel ``csrc/prominence_select_scan.cu`` runs the threshold,
+  candidate selection and prominence/width scans of every window in one
+  launch, one thread block per window; :func:`prominence_peaks_fused` adds
+  the torch finalize on the small ``[B, M]`` outputs.  Every flexible
+  detect pass of the epoch pipeline runs it.
+* :func:`prominence_scans` (``prominence_scans_pallas``) - the kernel
+  ``csrc/prominence_scans.cu`` runs only the scans, for candidates already
+  selected; :func:`prominence_peaks_batch` is the batch-level detector
+  around it (selection, scans, finalize), the cross-check path.
+
+Dispatch is by the tensor's device: a CPU tensor runs the plain twin
+(:func:`_prominence_select_scan_plain`, :func:`_prominence_scans_plain`); a
+CUDA tensor launches the kernel or raises.  ``launches`` and
+``scan_launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -26,15 +33,19 @@ from apda_fft_tpu_torch.ops.peaks_prominence import (
 )
 from apda_fft_tpu_torch.utils import kernels
 
-#: Kernel launches so far (one per call on a CUDA tensor with rows).
+#: Select+scan kernel launches so far (one per call on a CUDA tensor with rows).
 launches = 0
+#: Scans-only kernel launches so far (one per call on a CUDA tensor with slots).
+scan_launches = 0
 
 #: Largest spectrum the kernel takes: the row lives in shared memory, and a
 #: block may use 227 KB of it on Hopper (1 KB kept for the reduction scratch).
 MAX_H = (227 * 1024 - 1024) // 4
 
 _KERNEL = "prominence_select_scan"
+_SCANS_KERNEL = "prominence_scans"
 _fn = None
+_scans_fn = None
 
 
 def _kernel_fn():
@@ -51,6 +62,30 @@ def _kernel_fn():
         lib.apda_cuda_error_string.argtypes = [ctypes.c_int]
         _fn = (fn, lib.apda_cuda_error_string)
     return _fn
+
+
+def _scans_kernel_fn():
+    global _scans_fn
+    if _scans_fn is None:
+        lib = kernels.load(_SCANS_KERNEL)
+        fn = lib.apda_prominence_scans
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            *([ctypes.c_void_p] * 5), ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.apda_cuda_error_string.restype = ctypes.c_char_p
+        lib.apda_cuda_error_string.argtypes = [ctypes.c_int]
+        _scans_fn = (fn, lib.apda_cuda_error_string)
+    return _scans_fn
+
+
+def _check_h(h: int) -> None:
+    if h > MAX_H:
+        raise ValueError(
+            f"H={h} does not fit the detector kernel's shared memory "
+            f"(H*4 bytes must be <= {MAX_H * 4}); N >= 131072 is not supported on CUDA yet"
+        )
 
 
 def _prominence_select_scan_plain(mags: torch.Tensor, max_candidates: int):
@@ -88,11 +123,7 @@ def prominence_select_scan(mags: torch.Tensor, max_candidates: int):
         return _prominence_select_scan_plain(mags, m)
     if mags.device.type != "cuda":
         raise ValueError(f"no detector for device {mags.device}")
-    if h > MAX_H:
-        raise ValueError(
-            f"H={h} does not fit the detector kernel's shared memory "
-            f"(H*4 bytes must be <= {MAX_H * 4}); N >= 131072 is not supported on CUDA yet"
-        )
+    _check_h(h)
     kw = dict(device=mags.device)
     cid = torch.empty((b, m), dtype=torch.int32, **kw)
     is_cand = torch.empty((b, m), dtype=torch.bool, **kw)
@@ -132,3 +163,91 @@ def prominence_peaks_fused(
         mags, max_candidates
     )
     return prominence_finalize(cid, is_cand, cmag, proms, bins, fs, n_fft, k, std, n_cand)
+
+
+def _prominence_scans_plain(mags: torch.Tensor, cid: torch.Tensor, cmag: torch.Tensor,
+                            n_valid: torch.Tensor):
+    """Plain torch version of the scans kernel: the masked-reduction scans
+    over all M slots, then prominence 0 / width 1 past each row's
+    ``n_valid``."""
+    proms, bins = _prominence_and_width(mags, cid, cmag)
+    valid = torch.arange(cid.shape[-1], device=cid.device) < n_valid[:, None]
+    return torch.where(valid, proms, 0.0), torch.where(valid, bins, 1)
+
+
+def prominence_scans(mags: torch.Tensor, cid: torch.Tensor, cmag: torch.Tensor,
+                     n_valid: torch.Tensor):
+    """(prominence, width_bins) for the first ``n_valid`` candidates per window.
+
+    ``mags [B, H]``, ``cid``/``cmag [B, M]`` (bins and peak magnitudes of
+    the pre-selected slots, valid ones first), ``n_valid [B]``; cast to
+    float32 / int32 / float32 / int32 as the JAX kernel casts them.  Returns
+    ``[B, M]`` float32 prominences and int32 widths; slots past
+    ``n_valid`` hold 0 / 1.
+    """
+    global scan_launches
+    for name, t in (("mags", mags), ("cid", cid), ("cmag", cmag), ("n_valid", n_valid)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+        if t.device != mags.device:
+            raise ValueError(f"{name} is on {t.device}, mags on {mags.device}")
+    if mags.dim() != 2:
+        raise ValueError(f"mags must be [B, H], got shape {tuple(mags.shape)}")
+    b, h = mags.shape
+    if cid.dim() != 2 or cid.shape[0] != b or cmag.shape != cid.shape:
+        raise ValueError(
+            f"cid and cmag must be [B, M] with B={b}, got {tuple(cid.shape)} and "
+            f"{tuple(cmag.shape)}"
+        )
+    if n_valid.shape != (b,):
+        raise ValueError(f"n_valid must be [B] with B={b}, got {tuple(n_valid.shape)}")
+    m = cid.shape[1]
+    mags = mags.to(torch.float32).contiguous()
+    cid = cid.to(torch.int32).contiguous()
+    cmag = cmag.to(torch.float32).contiguous()
+    n_valid = n_valid.to(torch.int32).contiguous()
+    if mags.device.type == "cpu":
+        return _prominence_scans_plain(mags, cid, cmag, n_valid)
+    if mags.device.type != "cuda":
+        raise ValueError(f"no detector for device {mags.device}")
+    _check_h(h)
+    prom = torch.empty((b, m), dtype=torch.float32, device=mags.device)
+    bins = torch.empty((b, m), dtype=torch.int32, device=mags.device)
+    if b == 0 or m == 0:
+        return prom, bins
+    fn, err_str = _scans_kernel_fn()
+    rc = fn(
+        mags.data_ptr(), b, h, m, cid.data_ptr(), cmag.data_ptr(), n_valid.data_ptr(),
+        prom.data_ptr(), bins.data_ptr(),
+        mags.device.index, torch.cuda.current_stream(mags.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"{_SCANS_KERNEL} launch failed (B={b}, H={h}, M={m}): "
+            f"{err_str(rc).decode()} (cudaError {rc})"
+        )
+    scan_launches += 1
+    return prom, bins
+
+
+def prominence_peaks_batch(
+    mags: torch.Tensor,
+    fs,
+    n_fft: int,
+    k: int = 4,
+    max_candidates: int = 32,
+) -> ProminencePeaks:
+    """Batch-level prominence detection with the scans kernel.
+
+    Same contract as :func:`~apda_fft_tpu_torch.ops.peaks_prominence.prominence_peaks`
+    over ``mags [B, H]``: the one order-exact selection, then
+    :func:`prominence_scans` on the valid prefix of each row's slots, then the
+    torch finalize.  ``fs`` is a scalar or ``[B]``.
+    """
+    cid, is_cand, cmag, _, std, n_cand = prominence_select(mags, max_candidates)
+    # Slots are in walk order with the invalid ones last, so the valid ones
+    # form a prefix and a count is the kernel's loop bound.
+    n_valid = is_cand.sum(dim=-1).to(torch.int32)
+    proms, bins = prominence_scans(mags, cid, cmag, n_valid)
+    return prominence_finalize(cid, is_cand, cmag, proms.to(mags.dtype), bins, fs, n_fft, k,
+                               std, n_cand)

@@ -4,7 +4,7 @@ Counterpart of ``apda_fft_tpu/ops/fft.py``.  Behavioural contract (reference
 ``metrics/fft_iterativa.py:74-88``): subtract the median, zero-pad to a power
 of two, DFT, zero the DC bin.
 
-``halfspec_magnitudes`` has two working backends:
+``halfspec_magnitudes`` has three backends:
 
 * ``"matmul"`` - the Bailey four-step of the JAX package's
   ``_fourstep_pretranspose`` as float32 ``torch.matmul`` calls against
@@ -12,6 +12,10 @@ of two, DFT, zero the DC bin.
   TF32 would keep about three decimal digits and break the 1e-6 spectrum
   contract, so the global TF32 setting is overridden for the call.
 * ``"xla"`` - ``torch.fft.rfft``.
+* ``"pallas"`` - the fused four-step front-end kernel
+  (``ops/fft_cuda.py``, the counterpart of the JAX package's
+  ``fft_pallas.py``): one hand-written CUDA launch on a CUDA tensor, its
+  plain torch twin on a CPU tensor.  ``[B, N]`` windows only.
 
 The numpy table builders are re-stated here (the port never imports the JAX
 package); a test holds them bit-equal to the JAX package's.
@@ -258,10 +262,10 @@ def halfspec_magnitudes(
     """|FFT| over the first N/2 bins of real windows ``x`` [..., N], DC zeroed.
 
     This is what the peak detectors consume.  ``backend`` is ``"matmul"``
-    (the four-step) or ``"xla"`` (``torch.fft.rfft``); ``"pallas"`` names
-    the JAX package's fused front-end kernel, which has no port yet.
-    ``precision="fast"`` (a reduced-precision matmul mode) is not available
-    until its error is measured on the card.
+    (the four-step), ``"xla"`` (``torch.fft.rfft``) or ``"pallas"`` (the
+    fused front-end kernel of ``ops.fft_cuda``, ``[B, N]`` windows with N a
+    power of two >= 64).  ``precision="fast"`` (a reduced-precision matmul
+    mode) is not available until its error is measured on the card.
     """
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; expected one of {PRECISIONS}")
@@ -281,10 +285,9 @@ def halfspec_magnitudes(
             else:
                 mags = _fourstep_magnitudes(x, n // 2)
     elif backend == "pallas":
-        raise ValueError(
-            "backend='pallas' (the fused front-end kernel, ROADMAP B4) is not "
-            "ported yet; use 'matmul' or 'xla'"
-        )
+        from apda_fft_tpu_torch.ops.fft_cuda import halfspec_magnitudes_fused
+
+        return halfspec_magnitudes_fused(x)
     else:
         raise ValueError(f"unknown FFT backend {backend!r}; expected one of {BACKENDS}")
     mags[..., 0] = 0

@@ -13,8 +13,9 @@ Dispatch is by the window's device: a CPU tensor runs
 CUDA tensor launches the kernel or raises.  ``launches`` counts kernel
 launches per kernel.
 
-The kernel reads only the DFT and twiddle tables of :func:`_tables` (built
-in float64 on the host, cached per window length and device), and takes
+The kernel reads only the DFT and twiddle tables of
+``ops.fft_cuda._tables`` (built in float64 on the host, cached per window
+length and device), and takes
 windows of 64 to ``LOWLAT_MAX_N`` samples: the magnitudes must fit in one
 block's shared memory.
 """
@@ -22,21 +23,14 @@ block's shared memory.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
-from apda_fft_tpu_torch.models.pipeline import default_k, refine_subbin
+from apda_fft_tpu_torch.models.pipeline import _placed, default_k, refine_subbin
 from apda_fft_tpu_torch.models.results import EpochResult
-from apda_fft_tpu_torch.ops.fft import (
-    _dft_tables,
-    _twiddle_tables,
-    halfspec_magnitudes,
-    is_pow2,
-    next_pow2,
-    split_pow2,
-)
+from apda_fft_tpu_torch.ops.fft import halfspec_magnitudes, is_pow2, next_pow2, split_pow2
+from apda_fft_tpu_torch.ops.fft_cuda import _tables
 from apda_fft_tpu_torch.ops.peaks_prominence import (
     _prominence_and_width,
     prominence_finalize,
@@ -80,20 +74,6 @@ def _kernel_fn():
 def _latency_split(n: int) -> tuple[int, int]:
     """Four-step split of the latency kernel: the balanced ``split_pow2``."""
     return split_pow2(n)
-
-
-@functools.lru_cache(maxsize=32)
-def _tables(n1: int, n2: int, device: torch.device = torch.device("cpu")):
-    """The kernel's only parameters, in the JAX package's layout: ``cs1``
-    ``[2*n1, n1]`` (cos rows, then sin rows), twiddles ``twc``/``tws``
-    ``[n1, n2]`` and the step-3 half tables ``c2h``/``s2h`` ``[n2, n2/2]``,
-    float32 from float64 builders, on ``device``."""
-    c1, s1 = _dft_tables(n1, "float32")
-    twc, tws = _twiddle_tables(n1, n2, "float32")
-    c2f, s2f = _dft_tables(n2, "float32")
-    n2h = n2 // 2
-    host = (np.concatenate([c1, s1], axis=0), twc, tws, c2f[:, :n2h], s2f[:, :n2h])
-    return tuple(torch.tensor(np.ascontiguousarray(t), device=device) for t in host)
 
 
 def _analyze_window_lowlat_plain(
@@ -178,17 +158,16 @@ def analyze_window_lowlat(
     Latency counterpart of ``models.pipeline.analyze_epoch`` with the same
     decision semantics.  ``x`` is ``[N]`` or ``[1, N]`` with ``N == n_fft``
     (full windows only - ragged or padded windows take the batched path),
-    a tensor or an array; it runs where it lies (an array on the CPU).
-    Returns an :class:`EpochResult` with batch shape [1] on that device.
+    a tensor or an array.  A tensor runs where it lies; an array runs on
+    CUDA and raises ``RuntimeError`` without a CUDA device (pass a CPU
+    tensor for the CPU).  Returns an :class:`EpochResult` with batch shape
+    [1] on that device.
 
     ``max_candidates`` bounds the flexible detector like the batched path's
     static budget; decisions are exact iff ``result.n_required <=
     max_candidates`` (the caller re-runs larger otherwise).
     """
-    if isinstance(x, torch.Tensor):
-        x = x.to(torch.float32)
-    else:
-        x = torch.as_tensor(np.asarray(x), dtype=torch.float32)
+    x = _placed(x, None, torch.float32)
     if x.dim() == 2:
         if x.shape[0] != 1:
             raise ValueError(f"latency path takes exactly one window, got {tuple(x.shape)}")

@@ -6,9 +6,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 1. device: a CUDA device must be present; prints the card's name and power
    limit (``nvidia-smi``);
-2. build: compiles ``apda_fft_tpu_torch/csrc/prominence_select_scan.cu`` and
-   ``lowlat_window.cu`` with nvcc (sm_90a), both at once, and prints the
-   seconds each took;
+2. build: compiles ``apda_fft_tpu_torch/csrc/prominence_select_scan.cu``,
+   ``lowlat_window.cu``, ``halfspec_fused.cu`` and ``prominence_scans.cu``
+   with nvcc (sm_90a), all four at once, and prints the seconds each took;
 3. kernel vs plain on the card: the select+scan kernel against its plain
    torch version on four spectrum corpora at H in {32, 128, 2048, 32768}
    and M in {2, 12, 32, 128} - integers equal, floats within rtol 1e-6;
@@ -44,8 +44,38 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``analyze_epoch``, ``lowlat="never"`` and the plain version (host wall
    clock with synchronize, median of 50), and the flexible kernel at
    M=64, N=4096;
-10. one JSON line describing the three kernels, the card line, then the
-   result line ``{"ok": true, "device": {...}}``.
+10. fused front end (``backend="pallas"``) vs plain on the card:
+   ``fft_cuda.halfspec_magnitudes_fused`` on centred modal, noise, impulse
+   and flat windows at N in {64, 1024, 4096, 65536} - kernel and plain twin
+   each <= 1e-6 normwise against float64 numpy.fft, kernel within 2e-6 of
+   the row maximum of the twin element by element, DC exactly 0;
+11. the ``backend="pallas"`` path: ``analyze_epoch(..., backend="pallas",
+   refine=True, lowlat="never")`` on the B=2048 x N=4096 clean and noisy
+   corpora, two epochs each (the noisy one runs two-tier); the front-end
+   kernel's launch count must be > 0 and every call of it is held against
+   the plain twin on its own windows; decisions against the float64 oracle
+   (32 windows) and the port's CPU run with ``backend="pallas"`` (256
+   windows); one rigid and one adaptive epoch (B=256) against the CPU run;
+   one window with ``backend="pallas"`` launches the front-end kernel and
+   not the latency kernels;
+12. pre-selected scans vs plain on the card: ``prominence_scans`` on the
+   four spectrum corpora of phase 3 at H in {32, 2048, 32768} and M in
+   {2, 12, 32, 128}, on the select+scan kernel's slots - integers equal,
+   floats within rtol 1e-6, and the same bits as the select+scan kernel's
+   prominences and widths on its valid slots; ``prominence_peaks_batch`` on
+   the noisy corpus's spectra (B=2048) equals ``prominence_peaks_fused`` at
+   the same budget, and its scans-kernel launch count must be > 0;
+13. times (CUDA events, median of 20, plain-kernel-kernel-plain order): the
+   front-end kernel, its plain twin and ``torch.fft.rfft``
+   (``backend="xla"``) at B=2048, N=4096, with the kernel's profiler device
+   time; epoch windows/s with ``backend="pallas"`` beside
+   ``backend="matmul"``, interleaved, on both corpora; the scans kernel and
+   its plain twin at B=2048, H=2048, M=32;
+14. one JSON line describing the five kernels, each with its bound (the
+   larger of its bytes over 3.35 TB/s and its float32 operations over
+   67 TFLOP/s, computed from the shapes timed) and the time of one
+   PyTorch call computing the same function where there is one, the card
+   line, then the result line ``{"ok": true, "device": {...}}``.
 
 It needs one card and no network, and imports neither JAX nor the JAX
 package (the oracle in ``tests/oracle.py`` is plain numpy).
@@ -67,12 +97,21 @@ import numpy as np
 import torch
 
 from apda_fft_tpu_torch.models import pipeline
-from apda_fft_tpu_torch.ops import detector_cuda, latency_cuda
+from apda_fft_tpu_torch.ops import detector_cuda, fft_cuda, latency_cuda
 from apda_fft_tpu_torch.ops.detector_cuda import (
+    _prominence_scans_plain,
     _prominence_select_scan_plain,
+    prominence_peaks_batch,
+    prominence_peaks_fused,
+    prominence_scans,
     prominence_select_scan,
 )
-from apda_fft_tpu_torch.ops.fft import halfspec_magnitudes
+from apda_fft_tpu_torch.ops.fft import halfspec_magnitudes, split_pow2
+from apda_fft_tpu_torch.ops.fft_cuda import (
+    _halfspec_magnitudes_fused_plain,
+    halfspec_magnitudes_fused,
+)
+from apda_fft_tpu_torch.ops.peaks_prominence import prominence_select
 from apda_fft_tpu_torch.utils import kernels
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -86,8 +125,16 @@ LOWLAT_REPLACES = {
     "lowlat_flexible": "apda_fft_tpu/ops/latency_pallas.py:467",
     "lowlat_rigid": "apda_fft_tpu/ops/latency_pallas.py:448",
 }
+HALFSPEC_SOURCE = "apda_fft_tpu_torch/csrc/halfspec_fused.cu"
+HALFSPEC_REPLACES = "apda_fft_tpu/ops/fft_pallas.py:115"
+SCANS_SOURCE = "apda_fft_tpu_torch/csrc/prominence_scans.cu"
+SCANS_REPLACES = "apda_fft_tpu/ops/detector_pallas.py:116"
 TIMING_RUNS = 20
 WALL_RUNS = 50
+#: H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s and float32
+#: FLOP/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -185,22 +232,43 @@ def phase_device() -> str:
     return card
 
 
+def bound(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
+    """The least time the card could take, in ms, and what sets it: the
+    larger of ``nbytes`` (each input read once, each output written once)
+    over the HBM rate and ``flops`` float32 operations over the FP32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def rfft_mag_flops(n: int) -> int:
+    """Float32 operations that |rfft| of one real ``n``-point window needs,
+    whatever the algorithm: 2.5*n*log2(n) for the real FFT (half of a
+    complex radix-2 FFT's 5*n*log2(n)), then two multiplies, an add and a
+    square root for each of the n/2 magnitudes.  The four-step that the
+    kernels run does more (2*n*n1 + 4*(n/2)*n2 FMAs); a bound counts only
+    what the function needs."""
+    return int(2.5 * n * (n.bit_length() - 1)) + 4 * (n // 2)
+
+
 def phase_build() -> None:
-    """Builds both sources at once, one nvcc each."""
+    """Builds the four sources at once, one nvcc each."""
     def build(name, load):
         t0 = time.perf_counter()
         load()
         return name, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         futures = [pool.submit(build, "prominence_select_scan", detector_cuda._kernel_fn),
-                   pool.submit(build, "lowlat_window", latency_cuda._kernel_fn)]
+                   pool.submit(build, "lowlat_window", latency_cuda._kernel_fn),
+                   pool.submit(build, "halfspec_fused", fft_cuda._kernel_fn),
+                   pool.submit(build, "prominence_scans", detector_cuda._scans_kernel_fn)]
         for fut in futures:
             name, sec = fut.result()
             log(f"[2 build] {os.path.relpath(kernels.library_path(name), ROOT)} in "
                 f"{sec:.2f} s")
-    log(f"[2 build] both in {time.perf_counter() - t0:.2f} s (nvcc {kernels.nvcc_path()})")
+    log(f"[2 build] all four in {time.perf_counter() - t0:.2f} s (nvcc {kernels.nvcc_path()})")
 
 
 def _kernel_equals_plain(mags: torch.Tensor, m: int, got, case: str) -> float:
@@ -266,7 +334,7 @@ def _assert_same(got, want, fields_exact, fields_close, where: str) -> None:
             atol=atol, rtol=rtol, err_msg=f"{where} {f}")
 
 
-def _which_side(x, gpu, cpu, oracle) -> str:
+def _which_side(x, gpu, cpu, oracle, backend: str = "matmul") -> str:
     """For a card-vs-CPU mismatch: the first differing window's magnitudes
     on both sides and in the float64 oracle, and both front ends' errors."""
     d = (gpu.mag.cpu() - cpu.mag).abs().amax(-1)
@@ -277,7 +345,7 @@ def _which_side(x, gpu, cpu, oracle) -> str:
     ref[:, 0] = 0.0
     errs = []
     for dev in ("cpu", "cuda"):
-        got = halfspec_magnitudes(torch.from_numpy(w).to(dev)).cpu().numpy()
+        got = halfspec_magnitudes(torch.from_numpy(w).to(dev), backend=backend).cpu().numpy()
         errs.append(f"{dev} {np.linalg.norm(got - ref) / np.linalg.norm(ref):.3e}")
     return (f"window {i} ({int((d > 1e-3).sum())} differ): card mag {gpu.mag[i].tolist()}, "
             f"CPU mag {cpu.mag[i].tolist()}, oracle {want}; front end normwise "
@@ -682,6 +750,272 @@ def phase_lowlat_times(card: str) -> dict[str, tuple[float, float]]:
     return out
 
 
+# ---------------------------------------------------------------- fused front end
+
+
+B4_NS = (64, 1024, 4096, 65536)
+
+
+def centred_windows(n: int, kind: str, b: int) -> np.ndarray:
+    """``b`` windows of one kind (``lowlat_window`` at seeds 0..b-1), each
+    mean-centred in float64, as the pipeline hands them to the front end."""
+    x = np.stack([lowlat_window(n, kind, seed=s) for s in range(b)]).astype(np.float64)
+    return (x - x.mean(axis=-1, keepdims=True)).astype(np.float32)
+
+
+def float64_mags(x: np.ndarray) -> np.ndarray:
+    ref = np.abs(np.fft.rfft(x.astype(np.float64))[:, : x.shape[-1] // 2])
+    ref[:, 0] = 0.0
+    return ref
+
+
+def _halfspec_equals_plain(x: torch.Tensor, got: torch.Tensor, case: str) -> float:
+    """Hold the front-end kernel's output ``got`` for ``x`` against the plain
+    twin: DC exactly 0 and, element by element, within 2e-6 of the row
+    maximum - the kernel sums each DFT sequentially in FMAs, ``torch.matmul``
+    in blocks, so the two differ in the last bits.  Returns the max abs
+    difference."""
+    g = got.cpu().numpy()
+    w = _halfspec_magnitudes_fused_plain(x).cpu().numpy()
+    assert g.shape == w.shape and g.dtype == np.float32, (case, g.shape, g.dtype)
+    assert not g[:, 0].any(), f"{case}: DC bin not zero"
+    scale = np.abs(w).max(axis=-1, keepdims=True)
+    diff = np.abs(g - w)
+    bad = diff > 2e-6 * scale
+    assert not bad.any(), (case, int(bad.sum()), float((diff / np.maximum(scale, 1e-30)).max()))
+    return float(diff.max(initial=0.0))
+
+
+def phase_halfspec_vs_plain() -> float:
+    """The front-end kernel and its twin against float64 numpy.fft and each
+    other; returns the max abs difference between them."""
+    before = fft_cuda.launches
+    worst = 0.0
+    for n in B4_NS:
+        b = 4 if n > 4096 else 16
+        line = []
+        for kind in ("modal", "noise", "impulse", "flat"):
+            xn = centred_windows(n, kind, b)
+            x = torch.from_numpy(xn).cuda()
+            got = halfspec_magnitudes_fused(x)
+            worst = max(worst, _halfspec_equals_plain(x, got, f"{kind} N={n}"))
+            ref = float64_mags(xn)
+            if not ref.any():
+                assert not got.any(), f"{kind} N={n}: a zero window gave a non-zero spectrum"
+                line.append(f"{kind} all zero")
+                continue
+            errs = [float(np.linalg.norm(m.cpu().numpy() - ref) / np.linalg.norm(ref))
+                    for m in (got, _halfspec_magnitudes_fused_plain(x))]
+            assert max(errs) <= 1e-6, (kind, n, errs)
+            line.append(f"{kind} {errs[0]:.3e}/{errs[1]:.3e}")
+        log(f"[10 fused front end] N={n:5d} B={b}: normwise error vs float64 numpy.fft, "
+            f"kernel/plain: {'; '.join(line)}")
+    assert fft_cuda.launches > before, "the front-end kernel was never launched"
+    log(f"[10 fused front end] all 16 cases: kernel == plain within 2e-6 of the row maximum, "
+        f"DC 0; launches {fft_cuda.launches - before}; max abs diff {worst:.3g}")
+    return worst
+
+
+def phase_pallas_path(corpora: dict[str, np.ndarray]) -> tuple[int, float]:
+    """Drive ``analyze_epoch(backend="pallas")`` on the card; returns the
+    front-end kernel's launches on that path and the max abs difference of
+    its calls against the plain twin."""
+    pipeline.reset_dynamic_state()
+    results, budgets = {}, {}
+    calls = []
+    wrapper = fft_cuda.halfspec_magnitudes_fused
+
+    def tapped(x):
+        out = wrapper(x)
+        calls.append((x.clone(), out.clone()))
+        return out
+
+    fft_cuda.halfspec_magnitudes_fused = tapped
+    fft_cuda.launches = 0
+    try:
+        for name, x in corpora.items():
+            xs = torch.from_numpy(x).cuda()
+            for epoch in range(2):
+                res = pipeline.analyze_epoch(xs, FS, n_fft=N_FFT, mode="flexible", refine=True,
+                                             lowlat="never", backend="pallas")
+                torch.cuda.synchronize()
+                stats = dict(pipeline.last_dynamic_stats())
+                log(f"[11 pallas path] {name} epoch {epoch}: count>0 in "
+                    f"{int((res.count > 0).sum())}/{x.shape[0]} windows; {stats}")
+            results[name], budgets[name] = res, stats
+        others = {}
+        for mode, name in (("rigid", "clean"), ("adaptive", "noisy")):
+            others[mode] = pipeline.analyze_epoch(
+                torch.from_numpy(corpora[name][:256]).cuda(), FS, n_fft=N_FFT, mode=mode,
+                backend="pallas")
+        # One window: the single-window route is the matmul backend's only,
+        # so this takes the batched path and its front-end kernel.
+        lat_before = sum(latency_cuda.launches.values())
+        fe_before = fft_cuda.launches
+        one = pipeline.analyze_epoch(torch.from_numpy(corpora["clean"][:1]).cuda(), FS,
+                                     n_fft=N_FFT, mode="flexible", refine=True, backend="pallas")
+        torch.cuda.synchronize()
+        assert fft_cuda.launches > fe_before, "one window with backend='pallas' skipped B4"
+        assert sum(latency_cuda.launches.values()) == lat_before, "it took the latency kernel"
+        launches = fft_cuda.launches
+    finally:
+        fft_cuda.halfspec_magnitudes_fused = wrapper
+    log(f"[11 pallas path] front-end kernel launches on the path: {launches} (calls at "
+        f"{[tuple(c[0].shape) for c in calls]}); one window launched it and no latency kernel")
+    assert launches > 0, "the backend='pallas' path never launched the front-end kernel"
+    assert launches == len(calls), (launches, len(calls))
+    assert budgets["noisy"]["tier"] is not None, "the noisy epoch did not run two-tier"
+    worst = 0.0
+    for i, (x, got) in enumerate(calls):
+        worst = max(worst, _halfspec_equals_plain(x, got, f"pallas-path call {i}"))
+    log(f"[11 pallas path] all {len(calls)} front-end calls equal the plain twin; max abs "
+        f"diff {worst:.3g}")
+    del calls
+
+    oracle = _load_oracle()
+    for name, x in corpora.items():
+        res = results[name]
+        assert res.freq.shape == (x.shape[0], 4) and bool(torch.isfinite(res.freq).all())
+        for i in range(32):
+            want = oracle.oracle_analyze(x[i].astype(np.float64), FS, "flexible")
+            c = int(res.count[i])
+            assert c == len(want), (name, i, c, len(want))
+            assert res.idx[i, :c].tolist() == [p["idx"] for p in want], (name, i)
+            np.testing.assert_allclose(res.freq[i, :c].cpu().numpy(),
+                                       [p["freq"] for p in want], atol=1e-4, rtol=1e-6)
+        cpu = _cpu_reference(
+            torch.tensor(x[:256]), FS, n_fft=N_FFT, mode="flexible", refine=True,
+            lowlat="never", backend="pallas", max_candidates=budgets[name]["candidate_budget"],
+        )
+        gpu = type(res)(*(f[:256] for f in res))
+        try:
+            _assert_same(gpu, cpu, ("count", "idx", "n_candidates", "n_required"),
+                         (("freq", 1e-4, 1e-6), ("mag", 1e-4, 1e-6)), f"{name} pallas vs CPU")
+        except AssertionError as err:
+            raise AssertionError(
+                f"{err}\n{_which_side(x, gpu, cpu, oracle, 'pallas')}") from err
+        log(f"[11 pallas path] {name}: 32 windows equal to the float64 oracle, 256 windows "
+            f"equal to the CPU run at budget {budgets[name]['candidate_budget']}")
+    for mode, name in (("rigid", "clean"), ("adaptive", "noisy")):
+        cpu = _cpu_reference(torch.tensor(corpora[name][:256]), FS, n_fft=N_FFT, mode=mode,
+                             backend="pallas")
+        _assert_same(others[mode], cpu, ("count", "idx"),
+                     (("freq", 1e-4, 1e-6), ("mag", 1e-4, 1e-5)), f"{mode} pallas vs CPU")
+        log(f"[11 pallas path] {mode} B=256 ({name}): decisions equal to the CPU run; "
+            f"count>0 in {int((others[mode].count > 0).sum())} windows")
+    want = oracle.oracle_analyze(corpora["clean"][0].astype(np.float64), FS, "flexible")
+    assert one.idx[0, :int(one.count[0])].tolist() == [p["idx"] for p in want]
+    log(f"[11 pallas path] one window: idx {one.idx[0].tolist()}, equal to the float64 oracle")
+    return launches, worst
+
+
+# ---------------------------------------------------------------- pre-selected scans
+
+
+def phase_scans_vs_plain(corpora: dict[str, np.ndarray]) -> tuple[int, float]:
+    """The scans kernel against its plain twin and against the select+scan
+    kernel on that kernel's own picks, then ``prominence_peaks_batch`` on
+    the noisy spectra; returns the scans kernel's launches in that last run
+    and the max abs float difference against the twin."""
+    worst = 0.0
+    cases = 0
+    for kind in ("modal", "noise", "flat", "ties"):
+        for h in (32, 2048, 32768):
+            b = 16 if h > 4096 else 64
+            mags = torch.from_numpy(spectra(b, h, seed=h + len(kind), kind=kind)).cuda()
+            diffs = []
+            for m in (2, 12, 32, 128):
+                cid, is_cand, cmag, s_prom, s_bins, _, _ = prominence_select_scan(mags, m)
+                n_valid = is_cand.sum(dim=-1).to(torch.int32)
+                prom, bins = prominence_scans(mags, cid, cmag, n_valid)
+                w_prom, w_bins = _prominence_scans_plain(mags, cid, cmag, n_valid)
+                case = f"{kind} H={h} M={m}"
+                np.testing.assert_array_equal(bins.cpu().numpy(), w_bins.cpu().numpy(),
+                                              err_msg=f"{case} bins")
+                np.testing.assert_allclose(prom.cpu().numpy(), w_prom.cpu().numpy(),
+                                           rtol=1e-6, atol=0, err_msg=f"{case} prom")
+                diffs.append(float((prom - w_prom).abs().max()) if prom.numel() else 0.0)
+                # Both kernels run scan_at on the same row: the same bits.
+                valid = is_cand.cpu().numpy()
+                assert np.array_equal(prom.cpu().numpy()[valid], s_prom.cpu().numpy()[valid]), case
+                assert np.array_equal(bins.cpu().numpy()[valid], s_bins.cpu().numpy()[valid]), case
+                cases += 1
+            worst = max(worst, *diffs)
+            log(f"[12 scans==plain] {kind:5s} H={h:5d} B={b}: equal to the plain twin and to "
+                f"the select+scan kernel on its picks; max|float diff| at M=2/12/32/128 = "
+                f"{', '.join(f'{d:.3g}' for d in diffs)}")
+    log(f"[12 scans==plain] all {cases} cases equal")
+
+    mags = centered_mags(torch.from_numpy(corpora["noisy"]).cuda()).contiguous()
+    budget = 32
+    detector_cuda.scan_launches = 0
+    got = prominence_peaks_batch(mags, FS, N_FFT, max_candidates=budget)
+    torch.cuda.synchronize()
+    launches = detector_cuda.scan_launches
+    want = prominence_peaks_fused(mags, FS, N_FFT, max_candidates=budget)
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f"prominence_peaks_batch {f}"
+    assert launches > 0, "prominence_peaks_batch never launched the scans kernel"
+    log(f"[12 scans path] prominence_peaks_batch on the noisy spectra [{BATCH}, {N_FFT // 2}] "
+        f"at M={budget}: {launches} scans-kernel launch(es); every field equal to "
+        f"prominence_peaks_fused; count>0 in {int((got.count > 0).sum())} windows")
+    return launches, worst
+
+
+def phase_new_times(corpora: dict[str, np.ndarray], card: str) -> dict[str, dict[str, float]]:
+    """Returns {kernel: {"ms", "plain_ms", "library_ms"}} for the front-end
+    and scans kernels (CUDA events, best of the two medians)."""
+    x = torch.from_numpy(corpora["noisy"]).cuda()
+    x = (x - x.mean(dim=-1, keepdim=True)).contiguous()
+    fns = {
+        "plain": lambda: _halfspec_magnitudes_fused_plain(x),
+        "kernel": lambda: halfspec_magnitudes_fused(x),
+        "rfft": lambda: halfspec_magnitudes(x, backend="xla"),
+    }
+    order = ("plain", "kernel", "rfft", "rfft", "kernel", "plain")
+    times = {k: [] for k in fns}
+    for k in order:
+        times[k].append(event_ms(fns[k]))
+    dev_ms = _kernel_device_ms(fns["kernel"], "halfspec_fused")
+    b_ms, b_by = bound(6 * x.numel(), BATCH * rfft_mag_flops(N_FFT))
+    log(f"[13 times] fused front end B={BATCH} N={N_FFT}: kernel "
+        f"{' / '.join(f'{t:.4f}' for t in times['kernel'])} ms (device {dev_ms:.4f} ms, "
+        f"profiler mean of 20), plain twin {' / '.join(f'{t:.4f}' for t in times['plain'])} "
+        f"ms, torch.fft.rfft (backend='xla') {' / '.join(f'{t:.4f}' for t in times['rfft'])} "
+        f"ms; bound {b_ms:.4f} ms ({b_by}); CUDA-event medians of {TIMING_RUNS}, "
+        f"P-K-L-L-K-P order; {card}")
+    out = {"halfspec_fused": {"ms": min(times["kernel"]), "plain_ms": min(times["plain"]),
+                              "library_ms": min(times["rfft"])}}
+
+    for name, xn in corpora.items():
+        xs = torch.from_numpy(xn).cuda()
+        rates = {"pallas": [], "matmul": []}
+        for backend in ("pallas", "matmul", "matmul", "pallas"):
+            ms = event_ms(lambda: pipeline.analyze_epoch(
+                xs, FS, n_fft=N_FFT, mode="flexible", refine=True, lowlat="never",
+                backend=backend))
+            rates[backend].append(BATCH / (ms / 1e3))
+        log(f"[13 times] epoch {name} B={BATCH} N={N_FFT} windows/s: backend='pallas' "
+            f"{' / '.join(f'{r:.1f}' for r in rates['pallas'])}, backend='matmul' "
+            f"{' / '.join(f'{r:.1f}' for r in rates['matmul'])} (CUDA-event medians of "
+            f"{TIMING_RUNS}, P-M-M-P order; {card})")
+
+    mags = centered_mags(torch.from_numpy(corpora["noisy"]).cuda()).contiguous()
+    m = 32
+    cid, is_cand, cmag, _, _, _ = prominence_select(mags, m)
+    n_valid = is_cand.sum(dim=-1).to(torch.int32)
+    p1 = event_ms(lambda: _prominence_scans_plain(mags, cid, cmag, n_valid))
+    k1 = event_ms(lambda: prominence_scans(mags, cid, cmag, n_valid))
+    k2 = event_ms(lambda: prominence_scans(mags, cid, cmag, n_valid))
+    p2 = event_ms(lambda: _prominence_scans_plain(mags, cid, cmag, n_valid))
+    log(f"[13 times] scans B={BATCH} H={N_FFT // 2} M={m} (noisy spectra, "
+        f"{int(n_valid.sum())} valid slots): kernel {k1:.4f} / {k2:.4f} ms, plain twin "
+        f"{p1:.4f} / {p2:.4f} ms (CUDA-event medians of {TIMING_RUNS}, P-K-K-P; {card})")
+    out["prominence_scans"] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": None}
+    return out
+
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -694,6 +1028,23 @@ def main() -> int:
     lowlat_launches, route_err = phase_route(
         _load_oracle(), _load_module("apda_signals", "signals.py"))
     lowlat_times = phase_lowlat_times(card)
+    halfspec_err = phase_halfspec_vs_plain()
+    halfspec_launches, pallas_err = phase_pallas_path(corpora)
+    scan_launches, scan_err = phase_scans_vs_plain(corpora)
+    new_times = phase_new_times(corpora, card)
+
+    h, m12 = N_FFT // 2, 12
+    # Per kernel, at the shapes its time was taken at: (bytes of its inputs
+    # and outputs, float32 operations of |rfft|).  The DFT tables are the
+    # four-step's, not the function's, so they count in neither; B2/B3's
+    # detector operations are left out, which keeps the bound a lower one.
+    work = {
+        "prominence_select_scan": (BATCH * h * 4 + BATCH * m12 * 17 + BATCH * 8, 0),
+        "lowlat_flexible": (N_FFT * 4 + 4 + 4 * (4 + 3 + 6 * 4), rfft_mag_flops(N_FFT)),
+        "lowlat_rigid": (1024 * 4 + 4 + 4 * (5 + 3 + 6 * 5), rfft_mag_flops(1024)),
+        "halfspec_fused": (BATCH * N_FFT * 6, BATCH * rfft_mag_flops(N_FFT)),
+        "prominence_scans": (BATCH * h * 4 + BATCH * 32 * 16 + BATCH * 4, 0),
+    }
     rows = [{
         "name": "prominence_select_scan",
         "route": "cuda",
@@ -703,6 +1054,7 @@ def main() -> int:
         "max_abs_err": max(corpora_err, main_err),
         "ms": k_ms,
         "plain_ms": p_ms,
+        "library_ms": None,
     }]
     for name in ("lowlat_flexible", "lowlat_rigid"):
         rows.append({
@@ -714,7 +1066,28 @@ def main() -> int:
             "max_abs_err": max(lowlat_err[name], route_err),
             "ms": lowlat_times[name][0],
             "plain_ms": lowlat_times[name][1],
+            "library_ms": None,
         })
+    rows.append({
+        "name": "halfspec_fused",
+        "route": "cuda",
+        "source": HALFSPEC_SOURCE,
+        "replaces": HALFSPEC_REPLACES,
+        "launches": halfspec_launches,
+        "max_abs_err": max(halfspec_err, pallas_err),
+        **new_times["halfspec_fused"],
+    })
+    rows.append({
+        "name": "prominence_scans",
+        "route": "cuda",
+        "source": SCANS_SOURCE,
+        "replaces": SCANS_REPLACES,
+        "launches": scan_launches,
+        "max_abs_err": scan_err,
+        **new_times["prominence_scans"],
+    })
+    for row in rows:
+        row["bound_ms"], row["bound_by"] = bound(*work[row["name"]])
     log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -21,7 +21,8 @@ def csrc_copy(tmp_path, monkeypatch):
     return dst
 
 
-@pytest.mark.parametrize("name", ["prominence_select_scan", "lowlat_window"])
+@pytest.mark.parametrize(
+    "name", ["prominence_select_scan", "lowlat_window", "halfspec_fused", "prominence_scans"])
 def test_library_name_follows_header_bytes(csrc_copy, name):
     before = kernels.library_path(name)
     assert before == kernels.library_path(name)

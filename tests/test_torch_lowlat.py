@@ -78,38 +78,40 @@ def test_plain_matches_pallas_interpret(mode, kind):
 def test_decisions_match_float64_oracle(mode, n, fs, seed):
     x = modal_signal(n, fs, seed=seed).astype(np.float32)
     ref = oracle_analyze(x, fs, mode=mode)
-    res = tlat.analyze_window_lowlat(x, fs, n_fft=n, mode=mode, max_candidates=16)
+    res = tlat.analyze_window_lowlat(torch.from_numpy(x), fs, n_fft=n, mode=mode,
+                                     max_candidates=16)
     assert int(res.n_candidates[0]) <= 16
     c = int(res.count[0])
     assert res.idx[0, :c].tolist() == [p["idx"] for p in ref]
 
 
 def test_flat_window_has_no_candidates():
-    res = tlat.analyze_window_lowlat(_window(256, 500.0, 0, "flat"), 500.0, mode="flexible",
-                                     refine=True)
+    res = tlat.analyze_window_lowlat(torch.from_numpy(_window(256, 500.0, 0, "flat")), 500.0,
+                                     mode="flexible", refine=True)
     assert int(res.count[0]) == 0 and int(res.n_candidates[0]) == 0
     assert res.idx.tolist() == [[-1] * 4] and not res.refined_freq.any()
 
 
 def test_validation_errors():
-    x = np.zeros(1024, np.float32)
+    x = torch.zeros(1024)
     with pytest.raises(ValueError, match="exactly one window"):
-        tlat.analyze_window_lowlat(np.zeros((2, 1024), np.float32), 500.0)
+        tlat.analyze_window_lowlat(torch.zeros(2, 1024), 500.0)
     with pytest.raises(ValueError, match="full window"):
-        tlat.analyze_window_lowlat(np.zeros(1000, np.float32), 500.0, n_fft=1024)
+        tlat.analyze_window_lowlat(torch.zeros(1000), 500.0, n_fft=1024)
     with pytest.raises(ValueError, match="power of two"):
-        tlat.analyze_window_lowlat(np.zeros(48, np.float32), 500.0, n_fft=48)
+        tlat.analyze_window_lowlat(torch.zeros(48), 500.0, n_fft=48)
     with pytest.raises(ValueError, match="unknown mode"):
         tlat.analyze_window_lowlat(x, 500.0, mode="adaptive")
     with pytest.raises(ValueError, match=r"\[N\] or \[1, N\]"):
-        tlat.analyze_window_lowlat(np.zeros((1, 1, 1024), np.float32), 500.0)
+        tlat.analyze_window_lowlat(torch.zeros(1, 1, 1024), 500.0)
 
 
 def test_budget_overflow_reported():
     # Pure noise has many threshold-crossing maxima; a tiny budget truncates
     # and must report the true pre-budget count for the caller's re-run.
     x = _window(1024, 500.0, seed=3, kind="noise")
-    lo = tlat.analyze_window_lowlat(x, 500.0, mode="flexible", max_candidates=2)
+    lo = tlat.analyze_window_lowlat(torch.from_numpy(x), 500.0, mode="flexible",
+                                    max_candidates=2)
     assert int(lo.n_candidates[0]) > 2
     assert int(lo.n_required[0]) > 2
 

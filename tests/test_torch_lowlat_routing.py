@@ -58,17 +58,17 @@ def _same_decisions(a, b):
 @pytest.mark.parametrize("mode", ["rigid", "flexible"])
 def test_single_full_window_routes_through_kernel(fake_card, mode):
     x = _modal(1024)
-    routed = analyze_epoch(x[None], 500.0, mode=mode)
+    routed = analyze_epoch(x[None], 500.0, mode=mode, device="cpu")
     n_routed_calls = len(fake_card)
     assert n_routed_calls >= 1
-    unrouted = analyze_epoch(x[None], 500.0, mode=mode, lowlat="never")
+    unrouted = analyze_epoch(x[None], 500.0, mode=mode, lowlat="never", device="cpu")
     assert len(fake_card) == n_routed_calls  # "never" added no launches
     _same_decisions(routed, unrouted)
 
 
 def test_lowlat_never_skips_kernel(fake_card):
     x = _modal(1024)
-    analyze_epoch(x[None], 500.0, mode="flexible", lowlat="never")
+    analyze_epoch(x[None], 500.0, mode="flexible", lowlat="never", device="cpu")
     assert fake_card == []
 
 
@@ -77,7 +77,7 @@ def test_sticky_budget_past_cap_skips_kernel_attempt(fake_card):
     # discarded; the routing must not pay the launch and readback.
     P._dynamic_budget[(1024, "flexible")] = 128
     x = _modal(1024)
-    analyze_epoch(x[None], 500.0, mode="flexible")
+    analyze_epoch(x[None], 500.0, mode="flexible", device="cpu")
     assert fake_card == []
 
 
@@ -91,10 +91,10 @@ def test_overflow_past_cap_falls_back_to_batched(fake_card):
     x = sum(
         np.sin(2 * np.pi * (b * fs / n) * t) for b in range(1100, 1313, 3)
     ).astype(np.float32)
-    routed = analyze_epoch(x[None], fs, mode="flexible")
+    routed = analyze_epoch(x[None], fs, mode="flexible", device="cpu")
     assert len(fake_card) >= 1
     assert P._dynamic_budget[(4096, "flexible")] > P.LOWLAT_MAX_BUDGET
-    unrouted = analyze_epoch(x[None], fs, mode="flexible", lowlat="never")
+    unrouted = analyze_epoch(x[None], fs, mode="flexible", lowlat="never", device="cpu")
     _same_decisions(routed, unrouted)
 
 
@@ -104,31 +104,31 @@ def test_early_complete_walk_keeps_kernel_result_past_candidate_overflow(fake_ca
     # is exact and kept, and the sticky budget stays under the cap.
     rng = np.random.default_rng(3)
     x = rng.standard_normal(4096).astype(np.float32)
-    routed = analyze_epoch(x[None], 500.0, mode="flexible")
+    routed = analyze_epoch(x[None], 500.0, mode="flexible", device="cpu")
     assert len(fake_card) >= 1
     assert int(routed.n_candidates.max()) > P.LOWLAT_MAX_BUDGET
     assert P._dynamic_budget[(4096, "flexible")] <= P.LOWLAT_MAX_BUDGET
-    unrouted = analyze_epoch(x[None], 500.0, mode="flexible", lowlat="never")
+    unrouted = analyze_epoch(x[None], 500.0, mode="flexible", lowlat="never", device="cpu")
     _same_decisions(routed, unrouted)
 
 
 def test_adaptive_forwards_lowlat_never(fake_card):
     x = _modal(1024)
-    res = analyze_epoch(x[None], 500.0, mode="adaptive", lowlat="never")
+    res = analyze_epoch(x[None], 500.0, mode="adaptive", lowlat="never", device="cpu")
     assert fake_card == []
     assert int(res.count[0]) > 0
 
 
 def test_adaptive_auto_routes_inner_flexible(fake_card):
     x = _modal(1024)
-    res = analyze_epoch(x[None], 500.0, mode="adaptive")
+    res = analyze_epoch(x[None], 500.0, mode="adaptive", device="cpu")
     assert len(fake_card) >= 1
     assert int(res.count[0]) > 0
 
 
 def test_batched_epochs_never_route(fake_card):
     x = np.stack([_modal(1024, seed=s) for s in range(3)])
-    analyze_epoch(x, 500.0, mode="flexible")
+    analyze_epoch(x, 500.0, mode="flexible", device="cpu")
     assert fake_card == []
 
 
@@ -154,7 +154,7 @@ def test_routing_decisions_match_jax(fake_card, monkeypatch):
         for x, mode in ((_modal(1024), "flexible"), (noise, "flexible"),
                         (_modal(1024, seed=2), "flexible"), (_modal(1024), "rigid")):
             want = JP.analyze_epoch(x[None], 500.0, mode=mode, dtype=np.float32)
-            got = analyze_epoch(x[None], 500.0, mode=mode)
+            got = analyze_epoch(x[None], 500.0, mode=mode, device="cpu")
             assert int(got.count[0]) == int(want.count[0])
             assert np.array_equal(got.idx[0].numpy(), np.asarray(want.idx[0]))
         assert fake_card == jax_calls

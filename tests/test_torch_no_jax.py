@@ -16,6 +16,7 @@ import sys
 import apda_fft_tpu_torch
 import apda_fft_tpu_torch.models.pipeline
 import apda_fft_tpu_torch.ops.detector_cuda
+import apda_fft_tpu_torch.ops.fft_cuda
 import apda_fft_tpu_torch.ops.latency_cuda
 import apda_fft_tpu_torch.utils.kernels
 import apda_fft_tpu_torch.utils.profiling

@@ -245,7 +245,7 @@ def test_detect_from_mags_matches_jax():
 
 def test_spectral_pipeline_and_metrics():
     x = _modal_windows(4, 1024, seed0=80)
-    pipe = tpipe.SpectralPipeline(tpipe.PipelineConfig(refine=True))
+    pipe = tpipe.SpectralPipeline(tpipe.PipelineConfig(refine=True, device="cpu"))
     res = pipe(x, FS)
     assert res.count.shape == (4,)
     for key in ("process_time", "wall_time", "percentage_cpu", "memrss", "candidate_budget"):
@@ -268,7 +268,7 @@ def test_top_peak_helpers():
 
 def test_empty_epoch():
     for mode in ("flexible", "rigid", "adaptive"):
-        res = tpipe.analyze_epoch(np.zeros((0, 256), np.float32), FS, mode=mode)
+        res = tpipe.analyze_epoch(np.zeros((0, 256), np.float32), FS, mode=mode, device="cpu")
         assert res.count.shape == (0,)
 
 
@@ -280,14 +280,63 @@ def test_empty_epoch():
     ({"center": "median"}, "center"),
     ({"taper": "kaiser"}, "taper"),
     ({"backend": "cufft"}, "backend"),
-    ({"backend": "pallas", "max_candidates": 4}, "ROADMAP B4"),
 ])
 def test_analyze_epoch_validates(kw, match):
     with pytest.raises(ValueError, match=match):
-        tpipe.analyze_epoch(np.zeros((2, 256), np.float32), FS, **kw)
+        tpipe.analyze_epoch(np.zeros((2, 256), np.float32), FS, device="cpu", **kw)
+
+
+def test_pallas_backend_runs():
+    """``backend="pallas"`` runs the fused front end's plain twin on the CPU
+    and decides like the matmul backend."""
+    x = _modal_windows(4, 1024, seed0=70)
+    got = tpipe.analyze_epoch(x, FS, backend="pallas", max_candidates=8, refine=True,
+                              device="cpu")
+    want = tpipe.analyze_epoch(x, FS, backend="matmul", max_candidates=8, refine=True,
+                               device="cpu")
+    _assert_epoch_equal(got, want)
+    assert int(got.count.min()) > 0
 
 
 def test_fast_precision_is_not_ported_yet():
     with pytest.raises(NotImplementedError, match="fast"):
         tpipe.analyze_epoch(np.zeros((2, 256), np.float32), FS, precision="fast",
-                            max_candidates=4)
+                            max_candidates=4, device="cpu")
+
+
+def test_arrays_run_on_the_card_by_default(monkeypatch):
+    """An array or list has no device of its own: without ``device`` it runs
+    on CUDA, so without a card the entry points raise instead of carrying
+    on silently on the CPU."""
+    from apda_fft_tpu_torch.ops import latency_cuda
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = _modal_windows(2, 1024, seed0=100)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpipe.analyze_epoch(x, FS)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpipe.analyze_epoch(x.tolist(), FS, mode="rigid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpipe.SpectralPipeline()(x, FS)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpipe.detect_from_mags(np.zeros((2, 64), np.float32), FS, n_fft=128)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        latency_cuda.analyze_window_lowlat(x[0], FS)
+
+
+def test_device_cpu_and_cpu_tensors_stay_on_the_cpu():
+    x = _modal_windows(3, 1024, seed0=110)
+    want = tpipe.analyze_epoch(torch.from_numpy(x), FS, refine=True)
+    runs = (
+        lambda: tpipe.analyze_epoch(x, FS, refine=True, device="cpu"),
+        lambda: tpipe.SpectralPipeline(tpipe.PipelineConfig(refine=True, device="cpu"))(x, FS),
+        lambda: tpipe.SpectralPipeline(tpipe.PipelineConfig(refine=True))(torch.from_numpy(x),
+                                                                          FS),
+    )
+    assert all(t.device.type == "cpu" for t in want)
+    for run in runs:
+        tpipe.reset_dynamic_state()
+        got = run()
+        for f, a, b in zip(got._fields, got, want):
+            assert a.device.type == "cpu", f
+            np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=f)
