@@ -2,7 +2,7 @@
 
 A port of the JAX package beside it, module for module and name for name.
 It imports torch and numpy only.  The flexible-mode detector's fused
-select+scan stage, the fused four-step front end (``backend="pallas"``), the
+select+scan stage, the fused FFT front end (``backend="pallas"``), the
 pre-selected prominence scans (:func:`prominence_peaks_batch`) and the whole
 single-window latency pipeline (:func:`analyze_window_lowlat`, flexible and
 rigid) run as hand-written CUDA kernels for Hopper (``sm_90a``) on CUDA

@@ -124,14 +124,13 @@ def prominence_select_scan(mags: torch.Tensor, max_candidates: int):
     if mags.device.type != "cuda":
         raise ValueError(f"no detector for device {mags.device}")
     _check_h(h)
-    kw = dict(device=mags.device)
-    cid = torch.empty((b, m), dtype=torch.int32, **kw)
-    is_cand = torch.empty((b, m), dtype=torch.bool, **kw)
-    cmag = torch.empty((b, m), dtype=torch.float32, **kw)
-    proms = torch.empty((b, m), dtype=torch.float32, **kw)
-    bins = torch.empty((b, m), dtype=torch.int32, **kw)
-    std = torch.empty((b,), dtype=torch.float32, **kw)
-    n_cand = torch.empty((b,), dtype=torch.int32, **kw)
+    cid = mags.new_empty((b, m), dtype=torch.int32)
+    is_cand = mags.new_empty((b, m), dtype=torch.bool)
+    cmag = mags.new_empty((b, m))
+    proms = mags.new_empty((b, m))
+    bins = mags.new_empty((b, m), dtype=torch.int32)
+    std = mags.new_empty((b,))
+    n_cand = mags.new_empty((b,), dtype=torch.int32)
     if b == 0:
         return cid, is_cand, cmag, proms, bins, std, n_cand
     fn, err_str = _kernel_fn()

@@ -12,10 +12,10 @@ of two, DFT, zero the DC bin.
   TF32 would keep about three decimal digits and break the 1e-6 spectrum
   contract, so the global TF32 setting is overridden for the call.
 * ``"xla"`` - ``torch.fft.rfft``.
-* ``"pallas"`` - the fused four-step front-end kernel
-  (``ops/fft_cuda.py``, the counterpart of the JAX package's
-  ``fft_pallas.py``): one hand-written CUDA launch on a CUDA tensor, its
-  plain torch twin on a CPU tensor.  ``[B, N]`` windows only.
+* ``"pallas"`` - the fused front-end kernel (``ops/fft_cuda.py``, the
+  counterpart of the JAX package's ``fft_pallas.py``): one hand-written
+  CUDA launch of an FFT on a CUDA tensor, its plain torch twin (the
+  four-step) on a CPU tensor.  ``[B, N]`` windows only.
 
 The numpy table builders are re-stated here (the port never imports the JAX
 package); a test holds them bit-equal to the JAX package's.

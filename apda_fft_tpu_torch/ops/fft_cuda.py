@@ -1,12 +1,13 @@
-"""Fused four-step front end: the hand-written CUDA kernel and its plain twin.
+"""Fused front end: the hand-written CUDA kernel and its plain twin.
 
 Counterpart of ``apda_fft_tpu/ops/fft_pallas.py``.
 :func:`halfspec_magnitudes_fused` computes ``|FFT|`` of the first N/2 bins
 of a ``[B, N]`` batch of real windows, DC zeroed, in one launch of a
-hand-written CUDA kernel (``csrc/halfspec_fused.cu``, one thread block per
-window): the four-step DFT at the ``split_pow2`` factorization (DFT over m1,
-twiddle, DFT over m2) as float32 FMA loops against float64-built tables.
-It is what ``halfspec_magnitudes(x, backend="pallas")`` runs.
+hand-written CUDA kernel (``csrc/halfspec_fused.cu``): each row packed into
+N/2 complex points, their FFT in radix-8 Stockham passes against one
+float64-built twiddle table (:func:`_twiddle_table`), then the split into
+the real transform's magnitudes.  It is what
+``halfspec_magnitudes(x, backend="pallas")`` runs.
 
 Dispatch is by the tensor's device: a CPU tensor runs
 :func:`_halfspec_magnitudes_fused_plain`, the same four-step as IEEE float32
@@ -45,8 +46,8 @@ def _kernel_fn():
         fn = lib.apda_halfspec_fused
         fn.restype = ctypes.c_int
         fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            *([ctypes.c_void_p] * 7), ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            *([ctypes.c_void_p] * 3), ctypes.c_int, ctypes.c_void_p,
         ]
         ws = lib.apda_halfspec_workspace_floats
         ws.restype = ctypes.c_longlong
@@ -59,7 +60,8 @@ def _kernel_fn():
 
 @functools.lru_cache(maxsize=32)
 def _tables(n1: int, n2: int, device: torch.device = torch.device("cpu")):
-    """The four-step's only parameters, in the JAX package's layout:
+    """The four-step's parameters (the plain twin's and the single-window
+    kernels'), in the JAX package's layout:
     ``cs1`` ``[2*n1, n1]`` (cos rows, then sin rows), twiddles
     ``twc``/``tws`` ``[n1, n2]`` and the step-3 half tables ``c2h``/``s2h``
     ``[n2, n2/2]``, float32 from float64 builders, on ``device``."""
@@ -71,9 +73,20 @@ def _tables(n1: int, n2: int, device: torch.device = torch.device("cpu")):
     return tuple(torch.tensor(np.ascontiguousarray(t), device=device) for t in host)
 
 
+@functools.lru_cache(maxsize=32)
+def _twiddle_table(n: int, device: torch.device = torch.device("cpu")) -> torch.Tensor:
+    """The kernel's only parameters: ``W_n^k = exp(-2*pi*i*k/n)`` for
+    ``k < n/2``, built in float64 and cast once to float32, as ``[n/2, 2]``
+    (real, imaginary) pairs on ``device``."""
+    w = np.exp(-2j * np.pi * np.arange(n // 2, dtype=np.float64) / n)
+    host = np.stack([w.real, w.imag], axis=-1).astype(np.float32)
+    return torch.tensor(host, device=device)
+
+
 def _halfspec_magnitudes_fused_plain(x: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of the kernel: the same four-step on
-    ``x [B, N]`` float32 as IEEE float32 matmuls against the same tables.
+    """Plain torch version of the kernel's function: the four-step DFT on
+    ``x [B, N]`` float32 as IEEE float32 matmuls against float64-built
+    tables (the JAX kernel's algorithm, not the CUDA kernel's).
 
     With ``a[m1, m2] = x[m2 + n2*m1]`` and ``k = k1 + n1*k2``::
 
@@ -101,14 +114,15 @@ def _halfspec_magnitudes_fused_plain(x: torch.Tensor) -> torch.Tensor:
 def _launch(x: torch.Tensor) -> torch.Tensor:
     global launches
     b, n = x.shape
-    n1, n2 = split_pow2(n)
     fn, ws_floats, err_str = _kernel_fn()
-    tables = _tables(n1, n2, x.device)
-    out = torch.empty((b, n // 2), dtype=torch.float32, device=x.device)
+    table = _twiddle_table(n, x.device)
+    if x.data_ptr() % 16:  # the kernel reads rows as float4
+        x = x.clone()
+    out = x.new_empty((b, n // 2))
     nws = ws_floats(n)
     ws = torch.empty(b * nws, dtype=torch.float32, device=x.device) if nws else None
     rc = fn(
-        x.data_ptr(), b, n1, n2, *(t.data_ptr() for t in tables), out.data_ptr(),
+        x.data_ptr(), b, n, table.data_ptr(), out.data_ptr(),
         ws.data_ptr() if ws is not None else None,
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
