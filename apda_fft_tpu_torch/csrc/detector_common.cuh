@@ -1,10 +1,11 @@
 // Device code shared by the port's detector kernels: block reductions, the
-// candidate walk order, the noise threshold and the prominence/width scan.
+// candidate walk order, and the noise threshold.
 //
-// Included by prominence_select_scan.cu (one block per window of a batch)
-// and lowlat_window.cu (one block for one whole window).  Everything that
-// feeds a decision uses explicitly rounded IEEE operations (no FMA
-// contraction, IEEE division and sqrt); build without fast math.
+// Included, through walk_common.cuh, by prominence_select_scan.cu and
+// prominence_scans.cu (one block per window of a batch) and by
+// lowlat_window.cu (one block for one whole window).  Everything that feeds
+// a decision uses explicitly rounded IEEE operations (no FMA contraction,
+// IEEE division and sqrt); build without fast math.
 
 #pragma once
 
@@ -17,9 +18,6 @@ struct Pick {  // a candidate in walk order: score descending, index ascending
   float s;
   int i;
 };
-struct F2 {
-  float a, b;
-};
 struct I2 {
   int a, b;
 };
@@ -31,7 +29,6 @@ __device__ __forceinline__ int shfl(int v, int o) {
   return __shfl_xor_sync(0xffffffffu, v, o);
 }
 __device__ __forceinline__ Pick shfl(Pick v, int o) { return {shfl(v.s, o), shfl(v.i, o)}; }
-__device__ __forceinline__ F2 shfl(F2 v, int o) { return {shfl(v.a, o), shfl(v.b, o)}; }
 __device__ __forceinline__ I2 shfl(I2 v, int o) { return {shfl(v.a, o), shfl(v.b, o)}; }
 
 __device__ __forceinline__ bool before(Pick p, Pick q) {
@@ -46,11 +43,6 @@ struct SumI {
 };
 struct First {
   __device__ Pick operator()(Pick p, Pick q) const { return before(p, q) ? p : q; }
-};
-struct MinMinF {
-  __device__ F2 operator()(F2 p, F2 q) const {
-    return {q.a < p.a ? q.a : p.a, q.b < p.b ? q.b : p.b};
-  }
 };
 struct MaxMinI {
   __device__ I2 operator()(I2 p, I2 q) const { return {max(p.a, q.a), min(p.b, q.b)}; }
@@ -79,7 +71,6 @@ struct Scratch {
   float f[W];
   int i[W];
   Pick p[W];
-  F2 f2[W];
   I2 i2[W];
 };
 
@@ -110,48 +101,6 @@ __device__ float noise_threshold(const float* x, int h, S& sc, float* sd_out) {
 // A strict interior local maximum of x[0..h) above the threshold.
 __device__ __forceinline__ bool is_candidate(const float* x, int h, int i, float thr) {
   return i >= 1 && i <= h - 2 && x[i] > x[i - 1] && x[i] > x[i + 1] && x[i] > thr;
-}
-
-// Prominence and width in bins of the peak (j, peak) on the row x[0..h).
-template <typename S>
-__device__ void scan_at(const float* x, int h, int j, float peak, S& sc, float* prom_out,
-                        int* bins_out) {
-  const int nt = blockDim.x;
-  // Nearest blockers (samples above the peak) on each side.
-  I2 blk = {-1, h};
-  for (int i = threadIdx.x; i < h; i += nt) {
-    if (x[i] > peak) {
-      if (i < j) blk.a = max(blk.a, i);
-      if (i > j) blk.b = min(blk.b, i);
-    }
-  }
-  blk = block_reduce(blk, MaxMinI(), sc.i2);
-  // Valleys: minima over the open intervals (blocker, j) and (j, blocker).
-  F2 mn = {INFINITY, INFINITY};
-  for (int i = threadIdx.x; i < h; i += nt) {
-    const float xi = x[i];
-    if (i > blk.a && i < j && xi < mn.a) mn.a = xi;
-    if (i > j && i < blk.b && xi < mn.b) mn.b = xi;
-  }
-  mn = block_reduce(mn, MinMinF(), sc.f2);
-  const float min_left = mn.a < peak ? mn.a : peak;
-  const float min_right = mn.b < peak ? mn.b : peak;
-  const float prom = __fsub_rn(peak, fmaxf(min_left, min_right));
-  const float valley = __fsub_rn(peak, prom);
-  const float target = __fadd_rn(valley, __fmul_rn(prom, 0.707f));
-  // Width stops: nearest index on each side at or below the target, or
-  // above the peak; clamped to [0, h-1].
-  I2 st = {0, h - 1};
-  for (int i = threadIdx.x; i < h; i += nt) {
-    const float xi = x[i];
-    if (xi <= target || xi > peak) {
-      if (i <= j) st.a = max(st.a, i);
-      if (i >= j) st.b = min(st.b, i);
-    }
-  }
-  st = block_reduce(st, MaxMinI(), sc.i2);
-  *prom_out = prom;
-  *bins_out = max(st.b - st.a, 1);
 }
 
 }  // namespace apda

@@ -1,7 +1,7 @@
-// The four-step half-spectrum front end of the single-window kernels in
-// lowlat_window.cu (one block for one whole window, mean-centred inside).
-// The batched front end, halfspec_fused.cu, is an FFT of its own and does
-// not include this header.
+// The four-step half-spectrum front end of the rigid single-window kernel
+// (B3) in lowlat_window.cu (one block for one whole window, mean-centred
+// inside), its only user: the flexible single-window kernel (B2) and the
+// batched front end (B4) run the FFT of fft_common.cuh.
 //
 // For one float32 window x[0..n), n = n1*n2 a power of two:
 //   step 1: b[r, m2] = sum_m1 cs1[r, m1] * x[m2 + n2*m1]  (r < n1: cos rows,

@@ -3,21 +3,19 @@
 //
 // Replaces the TPU kernels of `analyze_window_lowlat`
 // (apda_fft_tpu/ops/latency_pallas.py): `_flex_kernel` (flexible mode) and
-// `_rigid_kernel` (rigid mode).  For one float32 window x[0..n), n = n1*n2 a
-// power of two, both kernels compute
-//   * the mean-centred four-step DFT against the float64-built tables of
-//     `_tables` (step 1: [c1; s1] @ a with a[m1, m2] = x[m2 + n2*m1]; the
-//     twiddle; step 3 against the half tables [n2, n2/2]), then
-//     |X[k]| = sqrt(dr*dr + di*di) for k < n/2 with the DC bin zeroed,
-//     written in bin order k = k1 + n1*k2;
+// `_rigid_kernel` (rigid mode).  For one float32 window x[0..n), n a power of
+// two >= 64, both kernels compute
+//   * the half-spectrum magnitudes |X[k]| of the mean-centred window for
+//     k < n/2, DC zeroed, in bin order, in shared memory;
 //   * the noise threshold mean + 2*std (ddof=1) and the candidates (strict
 //     interior local maxima above it);
 // and then
 //   * flexible: up to `m_budget` picks in the reference's walk order
 //     (4-dp-rounded magnitude descending, ties by ascending bin), each with
-//     its prominence and -3 dB width, fed one by one to the greedy finalize
-//     (integer damping band, reference rounding, 5 % shoulder exclusion);
-//     `n_required` as in `prominence_finalize`;
+//     its prominence and -3 dB width, fed in order to the greedy finalize
+//     (integer damping band, reference rounding, 5 % shoulder exclusion),
+//     which stops at the k-th acceptance; `n_required` as in
+//     `prominence_finalize`;
 //   * rigid: the destructive Rayleigh greedy on a working copy of the
 //     magnitudes (argmax of the current local maxima above the original
 //     threshold, -3 dB width at 0.707*peak, 1.18*|di|/w >= 1.5 against every
@@ -25,46 +23,68 @@
 //   * the parabolic sub-bin refine on the unwiped magnitudes.
 //
 // What bounds it on the card: one window gives one thread block, so the
-// kernel runs on one of the 132 SMs.  The front end is 2*n*(n1+n2) float32
-// FMAs (1 M at n=4096, 67 M at n=65536) in plain FMA loops - no tensor cores, whose
-// float32 path is TF32 and would break the 1e-6 spectrum contract.  The
-// detector is a serial chain of block reductions (four per flexible pick,
-// two per rigid round), each a warp-shuffle tree and two __syncthreads.
-// The design keeps that chain short: the finalize runs as each pick
-// arrives and stops at the k-th acceptance (later picks cannot change any
-// output), and the magnitudes - read by every reduction - sit in shared
-// memory.  The step-1/step-3 intermediate ([2*n1, n2]) and the rigid
-// working copy go to shared memory when they fit in the 227 KB a block may
-// use and to a global workspace the wrapper allocates otherwise (layout()).
+// kernel runs on one of the 132 SMs, and its time is the latency of a chain
+// of stages with barriers between them, not bytes (4*n in, a few dozen out)
+// nor operations.
+//   * Flexible (B2) keeps that chain short.  Its front end is the FFT of
+//     fft_common.cuh (B4's, on the same float64-built twiddle table; the
+//     pack subtracts the block-summed mean): log2(n)/3 Stockham passes, a
+//     barrier each, instead of a four-step's 2*n*(n1+n2) FMAs.  Its
+//     selection is the select+scan kernel's (walk_common.cuh): 32-bin chunk
+//     summaries, `noise_threshold` (its two block sums decide the
+//     candidates), one compaction into walk-order keys and one ranking; a
+//     list that outgrows its room selects from the row, one block reduction
+//     a round.  Then the block's warps scan all picks at once, each walking
+//     outward from its peak over the chunk summaries (at most two rounds at
+//     32 warps and 64 picks), and after one barrier thread 0 runs the
+//     finalize over them in walk order, stopping at the k-th acceptance
+//     (the scans past the stop change no output).  Picks go in rounds of
+//     kSlots, so any budget runs; the route's cap is one round.
+//   * Rigid (B3) runs the four-step DFT of fourstep_common.cuh against the
+//     tables of ops/fft_cuda.py `_tables` as FP32 FMA loops, then a serial
+//     chain of block reductions, two per greedy round.
+// Shared memory holds the magnitudes always (so n <= 65536), then, as they
+// fit in the 227 KB a block may use, the flexible kernel's chunk summaries,
+// candidate list and FFT exchange buffers (the buffers go to a global
+// workspace the wrapper allocates from n = 32768), or the rigid kernel's
+// working copy and four-step intermediate (layout()).
 //
 // Arithmetic that decides (threshold, selection score, width targets, the
 // finalize's rounding and ratios, the wipe count, the refine) uses explicitly
 // rounded IEEE operations; build without fast math.
 
-#include "detector_common.cuh"
+#include "fft_common.cuh"
 #include "fourstep_common.cuh"
+#include "walk_common.cuh"
 
 namespace {
 
 using namespace apda;
 
+// Most threads a block may have; the launch picks the count.
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
+// Picks the flexible kernel scans in one round: the route's budget cap
+// (`LOWLAT_MAX_BUDGET`).
+constexpr int kSlots = 64;
 // Dynamic shared memory a block may use on Hopper, less the static scratch.
 constexpr size_t kSmemCap = 227 * 1024 - 2048;
 
-// Where the kernel's arrays live: shared memory when they fit, in the order
-// magnitudes, rigid working copy, four-step intermediate; else the
-// workspace.
+// Where the kernel's arrays live.  Rigid: shared memory when they fit, in
+// the order magnitudes, working copy, four-step intermediate; else the
+// workspace.  Flexible: the magnitudes, chunk summaries and candidate list
+// in shared memory, then the FFT's two exchange buffers there when the
+// whole list fits beside them, else in the workspace.
 struct Layout {
   size_t smem_bytes;
   size_t ws_floats;
-  bool mags_smem, work_smem, b_smem;
+  bool mags_smem, work_smem, b_smem;  // b: the four-step intermediate or the FFT buffers
+  int list_cap;                       // flexible: keys the candidate list holds
 };
 
 Layout layout(int n, bool rigid) {
   const size_t h = (size_t)n / 2;
-  Layout l = {0, 0, false, false, false};
+  Layout l = {0, 0, false, false, false, 0};
   auto place = [&](size_t floats, bool* in_smem) {
     if (l.smem_bytes + floats * sizeof(float) <= kSmemCap) {
       l.smem_bytes += floats * sizeof(float);
@@ -74,19 +94,35 @@ Layout layout(int n, bool rigid) {
     }
   };
   place(h, &l.mags_smem);
-  if (rigid) place(h, &l.work_smem);
-  place(2 * (size_t)n, &l.b_smem);
+  if (rigid) {
+    place(h, &l.work_smem);
+    place(2 * (size_t)n, &l.b_smem);
+    return l;
+  }
+  l.smem_bytes += 2 * sizeof(float) * n_chunks((int)h);
+  const size_t full = (h / 4 + 2 < (size_t)kMaxList ? h / 4 + 2 : (size_t)kMaxList) & ~(size_t)1;
+  const size_t fft_floats = 4 * (size_t)padded((int)h);
+  if (l.smem_bytes + 8 * full + fft_floats * sizeof(float) <= kSmemCap) {
+    l.smem_bytes += fft_floats * sizeof(float);
+    l.b_smem = true;
+  } else {
+    l.ws_floats += fft_floats;
+  }
+  const size_t room = l.smem_bytes <= kSmemCap ? (kSmemCap - l.smem_bytes) / 8 : 0;
+  l.list_cap = (int)((full < room ? full : room) & ~(size_t)1);
+  l.smem_bytes += 8 * (size_t)l.list_cap;
   return l;
 }
 
+// The rigid kernel's arrays.
 struct Arrays {
   float* mags;
   float* work;
   float* b;
 };
 
-__device__ Arrays carve(float* smem, float* ws, int n, bool rigid, bool mags_smem,
-                        bool work_smem, bool b_smem) {
+__device__ Arrays carve_rigid(float* smem, float* ws, int n, bool mags_smem, bool work_smem,
+                              bool b_smem) {
   const size_t h = (size_t)n / 2;
   float* s = smem;
   float* w = ws;
@@ -97,13 +133,14 @@ __device__ Arrays carve(float* smem, float* ws, int n, bool rigid, bool mags_sme
   };
   Arrays a;
   a.mags = take(h, mags_smem);
-  a.work = rigid ? take(h, work_smem) : nullptr;
+  a.work = take(h, work_smem);
   a.b = take(2 * (size_t)n, b_smem);
   return a;
 }
 
-// Mean-centred four-step DFT of x -> mags[k], k = k1 + n1*k2 < n/2, DC 0.
-// b is the [2*n1, n2] intermediate.  Ends with a __syncthreads.
+// The rigid kernel's front end: the mean-centred four-step DFT of x ->
+// mags[k], k = k1 + n1*k2 < n/2, DC 0.  b is the [2*n1, n2] intermediate.
+// Ends with a __syncthreads.
 template <typename S>
 __device__ void front_end(const float* __restrict__ x, int n1, int n2, FourStepTables t,
                           float* b, float* mags, S& sc) {
@@ -164,81 +201,142 @@ __device__ Out outputs(int* iout, float* fout, int k) {
   return o;
 }
 
+// One round of the selection from the row (the route of a candidate list
+// that outgrew its room), for the whole block: the candidate after `prev`
+// in walk order (the first one when `first`), or {-inf, h} when none is
+// left.  One block reduction.  The select+scan kernel runs the same loop
+// inline: called from there, it changed that kernel's compiled code and
+// slowed it on the H100, though its timed rows never take this route.
+template <typename S>
+__device__ __forceinline__ Pick next_pick(const float* x, int h, float thr, bool first, Pick prev,
+                                          S& sc) {
+  Pick best = {-INFINITY, h};  // loses to every candidate
+  for (int i = threadIdx.x; i < h; i += blockDim.x) {
+    if (!is_candidate(x, h, i, thr)) continue;
+    const Pick p = {score_of(x[i]), i};
+    if ((first || before(prev, p)) && before(p, best)) best = p;
+  }
+  return block_reduce(best, First(), sc.p);
+}
+
+// The finalize's step for one pick (j, cmag) with its scans, on thread 0:
+// physics filters, reference rounding and the shoulder test against the
+// `count` peaks accepted so far.
+__device__ void finalize_pick(Out out, int j, float cmag, float prom, int bins, float ds,
+                              float half_sd, int* count) {
+  const float width = __fmul_rn((float)bins, ds);
+  const float fn = __fmul_rn((float)j, ds);
+  const float q = __fdiv_rn(fn, width);
+  const float damping = __fdiv_rn(1.f, __fmul_rn(2.f, q));
+  // Exact integer damping band: d = bins/(2*j) in [1/1000, 7/100].
+  const bool valid = prom > half_sd && width > 0.f && 500 * bins >= j && 50 * bins <= 7 * j;
+  const float freq_r = round_dec(fn, 1e4f);
+  const float mag_r = round_dec(cmag, 1e4f);
+  // A magnitude that rounds to 0 gets prominence ratio 0.
+  const float ratio = mag_r > 0.f ? __fdiv_rn(prom, mag_r) : 0.f;
+  bool near = false;
+  for (int s = 0; s < *count; ++s) {
+    const float f2 = out.freq[s];
+    const float rel = __fdiv_rn(fabsf(__fsub_rn(freq_r, f2)), f2 != 0.f ? f2 : 1.f);
+    near = near || rel < 0.05f;
+  }
+  if (valid && !(near && ratio < 0.10f)) {
+    const int c = *count;
+    out.idx[c] = j;
+    out.freq[c] = freq_r;
+    out.mag[c] = mag_r;
+    out.prom[c] = prom;
+    out.damp[c] = round_dec(__fmul_rn(damping, 100.f), 100.f);
+    out.q[c] = round_dec(q, 100.f);
+    *count = c + 1;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
-lowlat_flexible_kernel(const float* __restrict__ x, int n1, int n2, FourStepTables t,
+lowlat_flexible_kernel(const float* __restrict__ x, int n, const float2* __restrict__ tw,
                        const float* __restrict__ fs, int k, int m_budget, int refine,
-                       int* iout, float* fout, float* ws, bool mags_smem, bool b_smem) {
-  extern __shared__ float smem[];
+                       int* iout, float* fout, float2* ws, int cap, bool fft_smem) {
+  extern __shared__ __align__(16) float flex_smem[];  // not `smem`: the rigid kernel's type differs
   __shared__ Scratch<kWarps> sc;
-  __shared__ int s_count;
+  __shared__ int s_pick[kSlots];
+  __shared__ float s_prom[kSlots];
+  __shared__ int s_bins[kSlots];
+  __shared__ int n_listed, s_count;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const int n = n1 * n2;
+  const int warp = tid >> 5;
+  const int nwarps = nt >> 5;
   const int h = n / 2;
-  const Arrays a = carve(smem, ws, n, false, mags_smem, false, b_smem);
+  float* m = flex_smem;
+  const Summaries sm = {m + h, m + h + n_chunks(h)};
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(m + h + 2 * n_chunks(h));
+  float2* a = fft_smem ? reinterpret_cast<float2*>(keys + cap) : ws;
+  float2* c = a + padded(h);
   const Out out = outputs(iout, fout, k);
-  if (tid == 0) s_count = 0;
-  front_end(x, n1, n2, t, a.b, a.mags, sc);
-  const float* m = a.mags;
+  if (tid == 0) {
+    n_listed = 0;
+    s_count = 0;
+  }
+
+  // Front end: the mean (a block sum), the centred pack of the h complex
+  // points, the FFT, the split into the magnitudes.
+  float total = 0.f;
+  for (int i = tid; i < n; i += nt) total = __fadd_rn(total, x[i]);
+  total = block_reduce(total, SumF(), sc.f);
+  pack_row<true>(x, __fdiv_rn(total, (float)n), a, h, tid, nt);
+  __syncthreads();
+  fft_passes(a, c, h, tid, nt, tw);
+  split_mags(a, tw, m, h, tid, nt);
+  __syncthreads();
+  build_summaries(m, h, sm);  // read after noise_threshold's barriers
 
   float sd;
   const float thr = noise_threshold(m, h, sc, &sd);
-  int c = 0;
-  for (int i = tid; i < h; i += nt) c += is_candidate(m, h, i, thr) ? 1 : 0;
-  const int n_cand = block_reduce(c, SumI(), sc.i);
+  compact_candidates(m, h, thr, keys, cap, &n_listed);
+  __syncthreads();
+  const int n_cand = n_listed;
+  const int live = min(n_cand, m_budget);
   const float ds = __fdiv_rn(*fs, (float)n);
   const float half_sd = __fmul_rn(0.5f, sd);
 
-  // Thread 0 runs the greedy finalize on each pick as it arrives.  Once k
-  // peaks are accepted the walk is complete: later picks change nothing.
-  int count = 0, consumed = 0;
-  const int live = min(n_cand, m_budget);
+  // Rounds of up to kSlots picks: select them, scan them all on the warps,
+  // then thread 0 finalizes them in walk order.  Once k peaks are accepted
+  // the walk is complete: later picks change nothing.
+  int count = 0, consumed = 0;  // thread 0's
   Pick prev = {0.f, -1};
-  for (int r = 0; r < live; ++r) {
-    Pick best = {-INFINITY, h};  // loses to every candidate
-    for (int i = tid; i < h; i += nt) {
-      if (!is_candidate(m, h, i, thr)) continue;
-      const Pick p = {score_of(m[i]), i};
-      if ((r == 0 || before(prev, p)) && before(p, best)) best = p;
-    }
-    best = block_reduce(best, First(), sc.p);
-    const int j = best.i;
-    const float cmag = m[j];
-    float prom;
-    int bins;
-    scan_at(m, h, j, cmag, sc, &prom, &bins);
-    if (tid == 0) {
-      ++consumed;
-      const float width = __fmul_rn((float)bins, ds);
-      const float fn = __fmul_rn((float)j, ds);
-      const float q = __fdiv_rn(fn, width);
-      const float damping = __fdiv_rn(1.f, __fmul_rn(2.f, q));
-      // Exact integer damping band: d = bins/(2*j) in [1/1000, 7/100].
-      const bool valid = prom > half_sd && width > 0.f && 500 * bins >= j && 50 * bins <= 7 * j;
-      const float freq_r = round_dec(fn, 1e4f);
-      const float mag_r = round_dec(cmag, 1e4f);
-      // A magnitude that rounds to 0 gets prominence ratio 0.
-      const float ratio = mag_r > 0.f ? __fdiv_rn(prom, mag_r) : 0.f;
-      bool near = false;
-      for (int s = 0; s < count; ++s) {
-        const float f2 = out.freq[s];
-        const float rel = __fdiv_rn(fabsf(__fsub_rn(freq_r, f2)), f2 != 0.f ? f2 : 1.f);
-        near = near || rel < 0.05f;
+  for (int lo = 0; lo < live; lo += kSlots) {
+    const int hi = min(live, lo + kSlots);
+    if (n_cand <= cap) {
+      rank_picks(keys, n_cand, lo, hi, s_pick);
+    } else {
+      // The list overflowed: select from the row, one block reduction a
+      // round (round r takes the candidate after round r-1's pick).
+      for (int r = lo; r < hi; ++r) {
+        prev = next_pick(m, h, thr, r == 0, prev, sc);
+        if (tid == 0) s_pick[r - lo] = prev.i;
       }
-      if (valid && !(near && ratio < 0.10f)) {
-        out.idx[count] = j;
-        out.freq[count] = freq_r;
-        out.mag[count] = mag_r;
-        out.prom[count] = prom;
-        out.damp[count] = round_dec(__fmul_rn(damping, 100.f), 100.f);
-        out.q[count] = round_dec(q, 100.f);
-        ++count;
+    }
+    __syncthreads();
+    for (int r = warp; r < hi - lo; r += nwarps) {
+      const int j = s_pick[r];
+      float pr;
+      int bn;
+      warp_scan_at(m, h, j, m[j], sm, &pr, &bn);
+      if ((tid & 31) == 0) {
+        s_prom[r] = pr;
+        s_bins[r] = bn;
+      }
+    }
+    __syncthreads();
+    if (tid == 0) {
+      for (int r = 0; r < hi - lo && count < k; ++r) {
+        ++consumed;
+        finalize_pick(out, s_pick[r], m[s_pick[r]], s_prom[r], s_bins[r], ds, half_sd, &count);
       }
       s_count = count;
     }
     __syncthreads();
     if (s_count >= k) break;
-    prev = best;
   }
   if (tid == 0) {
     out.scalars[0] = count;
@@ -262,7 +360,7 @@ lowlat_rigid_kernel(const float* __restrict__ x, int n1, int n2, FourStepTables 
   const int nt = blockDim.x;
   const int n = n1 * n2;
   const int h = n / 2;
-  const Arrays a = carve(smem, ws, n, true, mags_smem, work_smem, b_smem);
+  const Arrays a = carve_rigid(smem, ws, n, mags_smem, work_smem, b_smem);
   const Out out = outputs(iout, fout, k);
   if (tid == 0) s_count = 0;
   front_end(x, n1, n2, t, a.b, a.mags, sc);
@@ -350,38 +448,50 @@ long long apda_lowlat_workspace_floats(int n, int rigid) {
   return (long long)layout(n, rigid != 0).ws_floats;
 }
 
-// Analyses the window x ([n1*n2] float32, contiguous) on `stream`.  The
-// tables are `_tables(n1, n2)`, fs a 1-element device float.  Outputs:
-// iout [k + 3] int32, fout [6*k] float32 (layout at `Out`).  `ws` holds
+// Analyses the window x ([n1*n2] float32, contiguous, 16-byte aligned) on
+// `stream` with `threads` threads (a multiple of 32, at most 1024).  Rigid
+// mode reads the four-step tables `_tables(n1, n2)` (cs1 .. s2h), flexible
+// mode the twiddle table `_twiddle_table(n1*n2)`; the other pointers may be
+// null.  fs is a 1-element device float.  Outputs: iout [k + 3] int32,
+// fout [6*k] float32 (layout at `Out`).  `ws` holds
 // apda_lowlat_workspace_floats(n, rigid) floats (may be null when that is
 // 0).  Returns the cudaError_t of the launch (0 on success).
 int apda_lowlat_window(int rigid, const float* x, int n1, int n2, const float* cs1,
                        const float* twc, const float* tws, const float* c2h, const float* s2h,
-                       const float* fs, int k, int m_budget, int refine, int* iout, float* fout,
-                       float* ws, int device, void* stream) {
+                       const float* twiddle, const float* fs, int k, int m_budget, int refine,
+                       int* iout, float* fout, float* ws, int threads, int device,
+                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int n = n1 * n2;
   const Layout l = layout(n, rigid != 0);
-  if (!l.mags_smem || (l.ws_floats > 0 && ws == nullptr) || k < 1) {
+  if (!l.mags_smem || (l.ws_floats > 0 && ws == nullptr) || k < 1 || threads < 32 ||
+      threads > kThreads || threads % 32 != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const FourStepTables t = {cs1, twc, tws, c2h, s2h};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (rigid) {
-    // Dynamic plus static shared memory past 48 KB needs the opt-in.
-    err = cudaFuncSetAttribute(lowlat_rigid_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem_bytes);
+  // Dynamic plus static shared memory past 48 KB needs the opt-in, once per
+  // kernel and device for the largest size asked so far.
+  static size_t opted_in[2][64];
+  size_t* opted = device >= 0 && device < 64 ? &opted_in[rigid ? 1 : 0][device] : nullptr;
+  if (opted == nullptr || l.smem_bytes > *opted) {
+    err = rigid ? cudaFuncSetAttribute(lowlat_rigid_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)l.smem_bytes)
+                : cudaFuncSetAttribute(lowlat_flexible_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)l.smem_bytes);
     if (err != cudaSuccess) return (int)err;
-    lowlat_rigid_kernel<<<1, kThreads, l.smem_bytes, s>>>(
+    if (opted != nullptr) *opted = l.smem_bytes;
+  }
+  if (rigid) {
+    const FourStepTables t = {cs1, twc, tws, c2h, s2h};
+    lowlat_rigid_kernel<<<1, threads, l.smem_bytes, s>>>(
         x, n1, n2, t, fs, k, refine, iout, fout, ws, l.mags_smem, l.work_smem, l.b_smem);
   } else {
-    // Dynamic plus static shared memory past 48 KB needs the opt-in.
-    err = cudaFuncSetAttribute(lowlat_flexible_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-    lowlat_flexible_kernel<<<1, kThreads, l.smem_bytes, s>>>(
-        x, n1, n2, t, fs, k, m_budget, refine, iout, fout, ws, l.mags_smem, l.b_smem);
+    lowlat_flexible_kernel<<<1, threads, l.smem_bytes, s>>>(
+        x, n, reinterpret_cast<const float2*>(twiddle), fs, k, m_budget, refine, iout, fout,
+        reinterpret_cast<float2*>(ws), l.list_cap, l.b_smem);
   }
   return (int)cudaGetLastError();
 }

@@ -42,6 +42,11 @@ scan_launches = 0
 #: block may use 227 KB of it on Hopper (1 KB kept for the reduction scratch).
 MAX_H = (227 * 1024 - 1024) // 4
 
+#: Threads of a scans-kernel block, 128 or 256 (both keep 2048 threads on
+#: an SM): within 2 % of each other at M=32 on an H100
+#: (``chip_profile.py --block-sizes``, PERF.md).
+_SCANS_THREADS = 128
+
 _KERNEL = "prominence_select_scan"
 _SCANS_KERNEL = "prominence_scans"
 _fn = None
@@ -72,7 +77,7 @@ def _scans_kernel_fn():
         fn.restype = ctypes.c_int
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            *([ctypes.c_void_p] * 5), ctypes.c_int, ctypes.c_void_p,
+            *([ctypes.c_void_p] * 5), ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.apda_cuda_error_string.restype = ctypes.c_char_p
         lib.apda_cuda_error_string.argtypes = [ctypes.c_int]
@@ -217,7 +222,7 @@ def prominence_scans(mags: torch.Tensor, cid: torch.Tensor, cmag: torch.Tensor,
     fn, err_str = _scans_kernel_fn()
     rc = fn(
         mags.data_ptr(), b, h, m, cid.data_ptr(), cmag.data_ptr(), n_valid.data_ptr(),
-        prom.data_ptr(), bins.data_ptr(),
+        prom.data_ptr(), bins.data_ptr(), _SCANS_THREADS,
         mags.device.index, torch.cuda.current_stream(mags.device).cuda_stream,
     )
     if rc != 0:

@@ -1,7 +1,8 @@
 """Where an epoch's time goes on one NVIDIA GPU, and two host-side probes.
 
-    python3 chip_profile.py            # everything below, ~2 min on an H100
+    python3 chip_profile.py            # items 1-3 below, ~2 min on an H100
     python3 chip_profile.py --skip-cpu-probe
+    python3 chip_profile.py --block-sizes   # item 4 only
 
 1. profile: flexible ``analyze_epoch`` (refine, lowlat="never") on the
    B=2048 x N=4096 clean and noisy corpora of ``chip_smoke.py``, after two
@@ -18,7 +19,14 @@
    process and in fresh processes that first run an epoch on the card
    (the setting in which ``chip_smoke.py``'s CPU reference once went
    wrong); a last child runs the CPU front end with oneDNN's and MKL's
-   verbose logs on and reports which GEMM paths it took.
+   verbose logs on and reports which GEMM paths it took;
+4. block sizes: the profiler's device time of the flexible single-window
+   kernel at 256, 512 and 1024 threads (``latency_cuda._THREADS``) on cfg2's
+   window (N=4096, budget 2), the 71-candidate window at M=64 and a
+   two-tone window at N=65536, and of the scans kernel at 128 and 256
+   threads (``detector_cuda._SCANS_THREADS``) on the noisy spectra at M in
+   {12, 32, 128}; each order is mirrored (A-B-B-A) and every size gives the
+   same decisions.
 
 Every line carries the card's name and power limit.  Exit code 0 unless a
 check fails; the probe's mismatches are reported, not raised.
@@ -38,7 +46,7 @@ import torch
 
 import chip_smoke
 from apda_fft_tpu_torch.models import pipeline
-from apda_fft_tpu_torch.ops import detector_cuda, peaks_prominence
+from apda_fft_tpu_torch.ops import detector_cuda, latency_cuda, peaks_prominence
 from apda_fft_tpu_torch.ops.fft import halfspec_magnitudes
 
 FS, N_FFT, BATCH = chip_smoke.FS, chip_smoke.N_FFT, chip_smoke.BATCH
@@ -165,9 +173,64 @@ def cpu_probe(corpora: dict[str, np.ndarray], card: str) -> None:
         log(f"[cpu probe]   {ln[:200]}")
 
 
+def block_sizes(noisy: np.ndarray, card: str) -> None:
+    fs = torch.tensor(FS, device="cuda")
+    windows = (("cfg2 N=4096 budget 2", chip_smoke.clean_batch(1, 4096)[0], 2),
+               ("71-candidate window N=4096 M=64", chip_smoke.overflow_window(), 64),
+               ("two-tone N=65536 budget 2", chip_smoke.clean_batch(1, 65536)[0], 2))
+    saved = dict(latency_cuda._THREADS)
+    try:
+        for label, xn, m in windows:
+            x = torch.from_numpy(xn).cuda()
+
+            def run():
+                return latency_cuda.analyze_window_lowlat(x, fs, mode="flexible",
+                                                          max_candidates=m, refine=True)
+
+            times = collections.defaultdict(list)
+            decisions = set()
+            for threads in (1024, 512, 256, 256, 512, 1024):
+                latency_cuda._THREADS["flexible"] = threads
+                res = run()
+                decisions.add(tuple(torch.cat([res.idx[0], res.count, res.n_candidates,
+                                               res.n_required]).tolist()))
+                times[threads].append(chip_smoke._kernel_device_ms(run, "lowlat_flexible"))
+            assert len(decisions) == 1, (label, decisions)
+            log(f"[block sizes] lowlat_flexible {label}: device ms " + "; ".join(
+                f"{t} threads {' / '.join(f'{v:.4f}' for v in times[t])}" for t in sorted(times))
+                + f" (profiler, mean of 20; same decisions; {card})")
+    finally:
+        latency_cuda._THREADS.update(saved)
+    mags = chip_smoke.centered_mags(torch.from_numpy(noisy).cuda()).contiguous()
+    saved = detector_cuda._SCANS_THREADS
+    try:
+        for m in (12, 32, 128):
+            cid, is_cand, cmag, _, _, _ = peaks_prominence.prominence_select(mags, m)
+            n_valid = is_cand.sum(dim=-1).to(torch.int32)
+
+            def run():
+                return detector_cuda.prominence_scans(mags, cid, cmag, n_valid)
+
+            times = collections.defaultdict(list)
+            outs = []
+            for threads in (128, 256, 256, 128):
+                detector_cuda._SCANS_THREADS = threads
+                outs.append(run())
+                times[threads].append(chip_smoke._kernel_device_ms(
+                    run, "preselected_scans_kernel"))
+            assert all(torch.equal(a, b) for o in outs[1:] for a, b in zip(o, outs[0])), m
+            log(f"[block sizes] prominence_scans B={BATCH} M={m}: device ms " + "; ".join(
+                f"{t} threads {' / '.join(f'{v:.4f}' for v in times[t])}" for t in sorted(times))
+                + f" (profiler, mean of 20; same bits; {card})")
+    finally:
+        detector_cuda._SCANS_THREADS = saved
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--skip-cpu-probe", action="store_true")
+    parser.add_argument("--block-sizes", action="store_true",
+                        help="only time the kernels' block sizes (item 4)")
     parser.add_argument("--cpu-probe-child", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--cpu-gemm-child", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args()
@@ -181,6 +244,10 @@ def main() -> int:
         return 0
     card = chip_smoke.phase_device()
     corpora = {"clean": chip_smoke.clean_batch(BATCH), "noisy": chip_smoke.noisy_batch(BATCH)}
+    if args.block_sizes:
+        block_sizes(corpora["noisy"], card)
+        log(card)
+        return 0
     profile(corpora, card)
     finalize_forms(corpora["noisy"], card)
     if not args.skip_cpu_probe:

@@ -33,8 +33,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    each M;
 7. latency kernels vs plain on the card: ``analyze_window_lowlat`` (both
    modes, refine on) against its plain torch version on modal, noise,
-   impulse and flat windows at N in {64, 1024, 4096, 16384, 65536} and
-   flexible budgets {2, 8, 16, 64} - integers equal, ``mag`` within rtol
+   impulse and flat windows at N in {64, 1024, 4096, 16384, 32768, 65536}
+   (32768 the first N whose flexible FFT buffers go to the global
+   workspace) and flexible budgets {2, 8, 16, 64} - integers equal, ``mag`` within rtol
    1e-5 (one 4-dp step where rounded), ``freq`` within one 4-dp step,
    damping and q within one 2-dp step, ``refined_freq`` within 1e-3 Hz;
 8. the single-window route: ``analyze_epoch(x[None], fs)`` with the default
@@ -49,7 +50,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``torch.profiler``, and CUDA events over back-to-back calls), the routed
    ``analyze_epoch``, ``lowlat="never"`` and the plain version (host wall
    clock with synchronize, median of 50), and the flexible kernel at
-   M=64, N=4096;
+   M=64 on the 71-candidate window and at N=65536 (device time and call);
 10. fused front end (``backend="pallas"``) vs plain on the card:
    ``fft_cuda.halfspec_magnitudes_fused`` on centred modal, noise, impulse
    and flat windows at N in {64, 1024, 4096, 16384, 32768, 65536} (16384 the
@@ -72,7 +73,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    four spectrum corpora of phase 3 at H in {32, 2048, 32768} and M in
    {2, 12, 32, 128}, on the select+scan kernel's slots - integers equal,
    floats within rtol 1e-6, and the same bits as the select+scan kernel's
-   prominences and widths on its valid slots; ``prominence_peaks_batch`` on
+   prominences and widths on its valid slots; then hand-made slots on the
+   same rows: peaks ``cmag = x[cid]`` times 0.5 and 2, ``cid`` in {0, 1,
+   H-2, H-1, -1, H, H+7} and ``n_valid`` of -3 and M+5, against the twin;
+   ``prominence_peaks_batch`` on
    the noisy corpus's spectra (B=2048) equals ``prominence_peaks_fused`` at
    the same budget, and its scans-kernel launch count must be > 0;
 13. times (CUDA events, median of 20, plain-kernel-kernel-plain order): the
@@ -80,7 +84,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    (``backend="xla"``) at B=2048, N=4096, with the kernel's profiler device
    time; epoch windows/s with ``backend="pallas"`` beside
    ``backend="matmul"``, interleaved, on both corpora; the scans kernel and
-   its plain twin at B=2048, H=2048, M=32;
+   its plain twin at B=2048, H=2048, M=32, and the scans kernel's call and
+   profiler device time at M in {2, 12, 32, 128};
 14. one JSON line describing the five kernels, each with its bound (the
    larger of its bytes over 3.35 TB/s and its float32 operations over
    67 TFLOP/s, computed from the shapes timed) and the time of one
@@ -567,7 +572,8 @@ def phase_times(corpora: dict[str, np.ndarray], card: str) -> tuple[float, float
 # ---------------------------------------------------------------- latency route
 
 
-LOWLAT_NS = (64, 1024, 4096, 16384, 65536)
+#: 32768 is the first N whose flexible FFT buffers go to the workspace.
+LOWLAT_NS = (64, 1024, 4096, 16384, 32768, 65536)
 LOWLAT_BUDGETS = (2, 8, 16, 64)
 
 
@@ -806,9 +812,19 @@ def phase_lowlat_times(card: str) -> dict[str, tuple[float, float]]:
     assert int(res.n_candidates[0]) >= 64 and int(res.count[0]) < 4  # all 64 rounds run
     dev_ms = _kernel_device_ms(kernel, "lowlat_flexible")
     p_ms = event_ms(lambda: _lowlat_plain(x, fs, "flexible", 4, 64, True))
-    log(f"[9 times] flexible kernel at M=64, N=4096 (71-candidate window, all 64 rounds): "
+    log(f"[9 times] flexible kernel at M=64, N=4096 (71-candidate window, all 64 picks): "
         f"device {dev_ms:.4f} ms (profiler), call {event_ms(kernel):.4f} ms, plain "
         f"{p_ms:.4f} ms (CUDA events); {card}")
+    n = latency_cuda.LOWLAT_MAX_N
+    x = torch.from_numpy(clean_batch(1, n)[0]).cuda()
+    kernel = lambda: latency_cuda.analyze_window_lowlat(  # noqa: E731
+        x, fs, mode="flexible", max_candidates=2, refine=True)
+    k_ms = event_ms(kernel)
+    p_ms = event_ms(lambda: _lowlat_plain(x, fs, "flexible", 4, 2, True))
+    dev_ms = _kernel_device_ms(kernel, "lowlat_flexible")
+    log(f"[9 times] flexible kernel at N={n}, budget 2 (two-tone window): device "
+        f"{dev_ms:.4f} ms (profiler), call {k_ms:.4f} ms, plain {p_ms:.4f} ms (CUDA events); "
+        f"{card}")
     pipeline.reset_dynamic_state()
     return out
 
@@ -1022,6 +1038,8 @@ def phase_scans_vs_plain(corpora: dict[str, np.ndarray]) -> tuple[int, float]:
                 f"the select+scan kernel on its picks; max|float diff| at M=2/12/32/128 = "
                 f"{', '.join(f'{d:.3g}' for d in diffs)}")
     log(f"[12 scans==plain] all {cases} cases equal")
+    hand = phase_scans_hand_made()
+    worst = max(worst, hand)
 
     mags = centered_mags(torch.from_numpy(corpora["noisy"]).cuda()).contiguous()
     budget = 32
@@ -1037,6 +1055,53 @@ def phase_scans_vs_plain(corpora: dict[str, np.ndarray]) -> tuple[int, float]:
         f"at M={budget}: {launches} scans-kernel launch(es); every field equal to "
         f"prominence_peaks_fused; count>0 in {int((got.count > 0).sum())} windows")
     return launches, worst
+
+
+def _scans_equal_plain(mags, cid, cmag, n_valid, case: str) -> float:
+    """The scans kernel against its plain twin on the given slots: widths
+    equal, prominences within rtol 1e-6.  Returns the max abs difference."""
+    prom, bins = prominence_scans(mags, cid, cmag, n_valid)
+    w_prom, w_bins = _prominence_scans_plain(mags, cid, cmag, n_valid)
+    np.testing.assert_array_equal(bins.cpu().numpy(), w_bins.cpu().numpy(),
+                                  err_msg=f"{case} bins")
+    np.testing.assert_allclose(prom.cpu().numpy(), w_prom.cpu().numpy(), rtol=1e-6, atol=0,
+                               err_msg=f"{case} prom")
+    return float((prom - w_prom).abs().max()) if prom.numel() else 0.0
+
+
+def phase_scans_hand_made() -> float:
+    """The scans kernel's wider contract (the JAX kernel's): a peak that is
+    not ``x[cid]``, a ``cid`` anywhere in int32, a count outside [0, M].
+    Returns the max abs difference from the twin."""
+    worst = 0.0
+    cases = 0
+    for kind in ("modal", "noise", "flat", "ties"):
+        for h in (32, 2048, 32768):
+            b = 16 if h > 4096 else 64
+            mags = torch.from_numpy(spectra(b, h, seed=h + len(kind), kind=kind)).cuda()
+            cid, is_cand, cmag, _, _, _, _ = prominence_select_scan(mags, 12)
+            n_valid = is_cand.sum(dim=-1).to(torch.int32)
+            for scale in (0.5, 2.0):
+                worst = max(worst, _scans_equal_plain(
+                    mags, cid, cmag * scale, n_valid, f"{kind} H={h} cmag*{scale}"))
+            # Edge and out-of-range bins, with peaks from the row and beyond it.
+            edge = torch.tensor([0, 1, h - 2, h - 1, -1, h, h + 7], dtype=torch.int32,
+                                device="cuda").expand(b, -1).contiguous()
+            rows = torch.arange(b, device="cuda")[:, None]
+            peaks = mags[rows, edge.clamp(0, h - 1).long()]
+            peaks[:, 4] = mags.amax(-1) * 0.5
+            peaks[:, 5] = mags.mean(-1)
+            peaks[:, 6] = mags.amax(-1) * 2.0
+            full = torch.full((b,), edge.shape[1], dtype=torch.int32, device="cuda")
+            worst = max(worst, _scans_equal_plain(mags, edge, peaks, full, f"{kind} H={h} edge"))
+            for nv in (-3, edge.shape[1] + 5):
+                worst = max(worst, _scans_equal_plain(
+                    mags, edge, peaks, torch.full_like(full, nv), f"{kind} H={h} n_valid={nv}"))
+            cases += 5
+    log(f"[12 scans==plain] hand-made slots: {cases} cases (cmag = x[cid]*0.5 and *2, cid in "
+        f"{{0, 1, H-2, H-1, -1, H, H+7}}, n_valid -3 and M+5) equal to the plain twin; max abs "
+        f"float diff {worst:.3g}")
+    return worst
 
 
 def phase_new_times(corpora: dict[str, np.ndarray], card: str) -> dict[str, dict[str, float]]:
@@ -1089,6 +1154,18 @@ def phase_new_times(corpora: dict[str, np.ndarray], card: str) -> dict[str, dict
         f"{int(n_valid.sum())} valid slots): kernel {k1:.4f} / {k2:.4f} ms, plain twin "
         f"{p1:.4f} / {p2:.4f} ms (CUDA-event medians of {TIMING_RUNS}, P-K-K-P; {card})")
     out["prominence_scans"] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": None}
+    # Call times at every budget first, then the profiler's device times.
+    slots = {}
+    for m in (2, 12, 32, 128):
+        cid, is_cand, cmag, _, _, _ = prominence_select(mags, m)
+        n_valid = is_cand.sum(dim=-1).to(torch.int32)
+        fn = lambda c=cid, p=cmag, v=n_valid: prominence_scans(mags, c, p, v)  # noqa: E731
+        slots[m] = (fn, int(n_valid.sum()), event_ms(fn))
+    for m, (fn, valid, call_ms) in slots.items():
+        dev_ms = _kernel_device_ms(fn, "preselected_scans_kernel")
+        log(f"[13 times] scans B={BATCH} H={N_FFT // 2} M={m} ({valid} valid slots): device "
+            f"{dev_ms:.4f} ms (profiler, mean of 20), call {call_ms:.4f} ms (CUDA-event median "
+            f"of {TIMING_RUNS}); {card}")
     return out
 
 

@@ -7,7 +7,10 @@ then radix 8) with their twiddles read from the same float32 table
 (``fft_cuda._twiddle_table``), the same in-register DFTs, then the split
 into the real transform's magnitudes.  The model must be within 1e-6
 normwise of float64 ``numpy.fft`` (the spectrum contract), so an index or
-table mistake in the plan shows here before it reaches the card.
+table mistake in the plan shows here before it reaches the card.  The
+flexible single-window kernel (``csrc/lowlat_window.cu``) runs the same plan
+(``csrc/fft_common.cuh``) on a raw window, after a pack that subtracts the
+window's float32 mean from every sample; the model covers that pack too.
 """
 
 import numpy as np
@@ -51,11 +54,14 @@ def _twiddle(t: np.ndarray, e: np.ndarray, l: int) -> np.ndarray:
     return np.where(e < l, t[e % l], -t[e % l]).astype(np.complex64)
 
 
-def kernel_plan(x: np.ndarray, table: np.ndarray) -> np.ndarray:
-    """The kernel's arithmetic on ``x [B, n]`` float32 in complex64."""
+def kernel_plan(x: np.ndarray, table: np.ndarray, mean: np.ndarray | None = None) -> np.ndarray:
+    """The kernel's arithmetic on ``x [B, n]`` float32 in complex64; with
+    ``mean [B, 1]`` float32 the pack first subtracts it (rounded)."""
     b, n = x.shape
     l = n // 2
     t = (table[:, 0] + 1j * table[:, 1]).astype(np.complex64)
+    if mean is not None:
+        x = (x - mean).astype(np.float32)
     src = (x[:, 0::2] + 1j * x[:, 1::2]).astype(np.complex64)
     ns = 1
     for r_ in _radices(l):
@@ -121,6 +127,21 @@ def test_plan_matches_float64_fft(n, kind):
         # A centred constant row: every bin is rounding noise.
         assert np.abs(got).max() <= 1e-5
         return
+    assert np.linalg.norm(got - ref) / np.linalg.norm(ref) <= 1e-6
+
+
+@pytest.mark.parametrize("kind", ["modal", "noise", "impulse"])
+@pytest.mark.parametrize("n", NS)
+def test_centred_plan_matches_float64_fft(n, kind):
+    """A raw window with an offset, as the single-window kernel takes it:
+    its float32 mean (a float32 sum over n) leaves the pack, then the plan
+    runs as above; held against float64 ``numpy.fft`` of the window centred
+    in float64."""
+    x = (_windows(n, kind, b=2) + np.float32(3.0)).astype(np.float32)
+    mean = (x.sum(axis=-1, dtype=np.float32, keepdims=True) / np.float32(n)).astype(np.float32)
+    got = kernel_plan(x, fft_cuda._twiddle_table(n).numpy(), mean=mean)
+    ref = _float64_mags(x.astype(np.float64) - x.mean(axis=-1, keepdims=True, dtype=np.float64))
+    assert not got[:, 0].any()
     assert np.linalg.norm(got - ref) / np.linalg.norm(ref) <= 1e-6
 
 
