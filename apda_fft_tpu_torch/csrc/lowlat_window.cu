@@ -16,45 +16,57 @@
 //     (integer damping band, reference rounding, 5 % shoulder exclusion),
 //     which stops at the k-th acceptance; `n_required` as in
 //     `prominence_finalize`;
-//   * rigid: the destructive Rayleigh greedy on a working copy of the
-//     magnitudes (argmax of the current local maxima above the original
-//     threshold, -3 dB width at 0.707*peak, 1.18*|di|/w >= 1.5 against every
-//     accepted peak, a wipe of round(f*0.02/df) bins each side);
+//   * rigid: the destructive Rayleigh greedy (argmax of the current local
+//     maxima above the original threshold, raw magnitude, first bin on ties;
+//     -3 dB width at 0.707*peak on the current magnitudes; 1.18*|di|/w >= 1.5
+//     against every accepted peak; a wipe of round(f*0.02/df) bins each
+//     side, taken or not), stopping at k acceptances or when no candidate is
+//     left;
 //   * the parabolic sub-bin refine on the unwiped magnitudes.
 //
 // What bounds it on the card: one window gives one thread block, so the
 // kernel runs on one of the 132 SMs, and its time is the latency of a chain
 // of stages with barriers between them, not bytes (4*n in, a few dozen out)
-// nor operations.
-//   * Flexible (B2) keeps that chain short.  Its front end is the FFT of
-//     fft_common.cuh (B4's, on the same float64-built twiddle table; the
-//     pack subtracts the block-summed mean): log2(n)/3 Stockham passes, a
-//     barrier each, instead of a four-step's 2*n*(n1+n2) FMAs.  Its
-//     selection is the select+scan kernel's (walk_common.cuh): 32-bin chunk
+// nor operations.  Both kernels keep that chain short.
+//   * Front end: the FFT of fft_common.cuh (B4's, on the same float64-built
+//     twiddle table; the pack subtracts the block-summed mean): log2(n)/3
+//     Stockham passes, a barrier each.
+//   * Selection, the select+scan kernel's (walk_common.cuh): 32-bin chunk
 //     summaries, `noise_threshold` (its two block sums decide the
-//     candidates), one compaction into walk-order keys and one ranking; a
-//     list that outgrows its room selects from the row, one block reduction
-//     a round.  Then the block's warps scan all picks at once, each walking
-//     outward from its peak over the chunk summaries (at most two rounds at
-//     32 warps and 64 picks), and after one barrier thread 0 runs the
-//     finalize over them in walk order, stopping at the k-th acceptance
-//     (the scans past the stop change no output).  Picks go in rounds of
-//     kSlots, so any budget runs; the route's cap is one round.
-//   * Rigid (B3) runs the four-step DFT of fourstep_common.cuh against the
-//     tables of ops/fft_cuda.py `_tables` as FP32 FMA loops, then a serial
-//     chain of block reductions, two per greedy round.
-// Shared memory holds the magnitudes always (so n <= 65536), then, as they
-// fit in the 227 KB a block may use, the flexible kernel's chunk summaries,
-// candidate list and FFT exchange buffers (the buffers go to a global
-// workspace the wrapper allocates from n = 32768), or the rigid kernel's
-// working copy and four-step intermediate (layout()).
+//     candidates), one compaction into keys and one ranking in rounds of
+//     kSlots.
+//   * Flexible (B2): the block's warps scan all picks of a round at once,
+//     each walking outward from its peak over the chunk summaries (at most
+//     two rounds at 32 warps and 64 picks), and after one barrier thread 0
+//     runs the finalize over them in walk order, stopping at the k-th
+//     acceptance (the scans past the stop change no output).  Picks go in
+//     rounds of kSlots, so any budget runs; the route's cap is one round.
+//   * Rigid (B3): the candidates are ranked by raw magnitude, and one warp
+//     runs the greedy's rounds with no block barrier between them.  A wipe
+//     only lowers bins to 0, so an original candidate stays one until it is
+//     wiped, and a bin becomes a new candidate only just outside a wiped
+//     range, staying one until it is wiped itself: a round's argmax is the
+//     better of the ranked list's first unwiped entry and the best of the
+//     live "edge" candidates the warp keeps (two a lane).  The wipes zero
+//     the magnitudes in place (the refine reads a copy in the free FFT
+//     buffer) and the minimum summary of every chunk they touch, so the
+//     width is a warp walk over the summaries with the stop v <= 0.707*peak
+//     (a wiped bin, 0, always stops it).  The block steps in only to rank
+//     the next kSlots list entries and, where the list or the edge set has
+//     outgrown its room, to select each round's peak from the row (one
+//     block reduction a round).
+//   * A list that outgrows its room selects from the row, one block
+//     reduction a round, in both kernels.
+// Shared memory holds the magnitudes always (so n <= 65536), their chunk
+// summaries and the candidate list, then, as they fit in the 227 KB a block
+// may use, the FFT's two exchange buffers (from n = 32768 they go to a
+// global workspace the wrapper allocates; layout()).
 //
 // Arithmetic that decides (threshold, selection score, width targets, the
 // finalize's rounding and ratios, the wipe count, the refine) uses explicitly
 // rounded IEEE operations; build without fast math.
 
 #include "fft_common.cuh"
-#include "fourstep_common.cuh"
 #include "walk_common.cuh"
 
 namespace {
@@ -64,47 +76,41 @@ using namespace apda;
 // Most threads a block may have; the launch picks the count.
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
-// Picks the flexible kernel scans in one round: the route's budget cap
-// (`LOWLAT_MAX_BUDGET`).
+// Picks the flexible kernel scans in one round (the route's budget cap,
+// `LOWLAT_MAX_BUDGET`), and ranked list entries the rigid kernel takes in
+// one round of ranking.
 constexpr int kSlots = 64;
+// Accepted rigid peaks whose bins the Rayleigh test reads from shared
+// memory (later ones from the output).
+constexpr int kAccepted = 64;
 // Dynamic shared memory a block may use on Hopper, less the static scratch.
 constexpr size_t kSmemCap = 227 * 1024 - 2048;
 
-// Where the kernel's arrays live.  Rigid: shared memory when they fit, in
-// the order magnitudes, working copy, four-step intermediate; else the
-// workspace.  Flexible: the magnitudes, chunk summaries and candidate list
-// in shared memory, then the FFT's two exchange buffers there when the
-// whole list fits beside them, else in the workspace.
+// Where the kernels' arrays live: the magnitudes, chunk summaries and
+// candidate list in shared memory, then the FFT's two exchange buffers there
+// when the whole list fits beside them, else in the workspace.
 struct Layout {
   size_t smem_bytes;
   size_t ws_floats;
-  bool mags_smem, work_smem, b_smem;  // b: the four-step intermediate or the FFT buffers
-  int list_cap;                       // flexible: keys the candidate list holds
+  bool mags_smem, fft_smem;
+  int list_cap;  // keys the candidate list holds
 };
 
-Layout layout(int n, bool rigid) {
+Layout layout(int n) {
   const size_t h = (size_t)n / 2;
-  Layout l = {0, 0, false, false, false, 0};
-  auto place = [&](size_t floats, bool* in_smem) {
-    if (l.smem_bytes + floats * sizeof(float) <= kSmemCap) {
-      l.smem_bytes += floats * sizeof(float);
-      *in_smem = true;
-    } else {
-      l.ws_floats += floats;
-    }
-  };
-  place(h, &l.mags_smem);
-  if (rigid) {
-    place(h, &l.work_smem);
-    place(2 * (size_t)n, &l.b_smem);
-    return l;
+  Layout l = {0, 0, false, false, 0};
+  if (h * sizeof(float) <= kSmemCap) {
+    l.smem_bytes = h * sizeof(float);
+    l.mags_smem = true;
+  } else {
+    l.ws_floats = h;
   }
   l.smem_bytes += 2 * sizeof(float) * n_chunks((int)h);
   const size_t full = (h / 4 + 2 < (size_t)kMaxList ? h / 4 + 2 : (size_t)kMaxList) & ~(size_t)1;
   const size_t fft_floats = 4 * (size_t)padded((int)h);
   if (l.smem_bytes + 8 * full + fft_floats * sizeof(float) <= kSmemCap) {
     l.smem_bytes += fft_floats * sizeof(float);
-    l.b_smem = true;
+    l.fft_smem = true;
   } else {
     l.ws_floats += fft_floats;
   }
@@ -112,43 +118,6 @@ Layout layout(int n, bool rigid) {
   l.list_cap = (int)((full < room ? full : room) & ~(size_t)1);
   l.smem_bytes += 8 * (size_t)l.list_cap;
   return l;
-}
-
-// The rigid kernel's arrays.
-struct Arrays {
-  float* mags;
-  float* work;
-  float* b;
-};
-
-__device__ Arrays carve_rigid(float* smem, float* ws, int n, bool mags_smem, bool work_smem,
-                              bool b_smem) {
-  const size_t h = (size_t)n / 2;
-  float* s = smem;
-  float* w = ws;
-  auto take = [&](size_t floats, bool in_smem) {
-    float* p = in_smem ? s : w;
-    (in_smem ? s : w) += floats;
-    return p;
-  };
-  Arrays a;
-  a.mags = take(h, mags_smem);
-  a.work = take(h, work_smem);
-  a.b = take(2 * (size_t)n, b_smem);
-  return a;
-}
-
-// The rigid kernel's front end: the mean-centred four-step DFT of x ->
-// mags[k], k = k1 + n1*k2 < n/2, DC 0.  b is the [2*n1, n2] intermediate.
-// Ends with a __syncthreads.
-template <typename S>
-__device__ void front_end(const float* __restrict__ x, int n1, int n2, FourStepTables t,
-                          float* b, float* mags, S& sc) {
-  const int n = n1 * n2;
-  float s = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) s = __fadd_rn(s, x[i]);
-  s = block_reduce(s, SumF(), sc.f);
-  fourstep_halfspec<true>(x, __fdiv_rn(s, (float)n), n1, n2, t, b, mags);
 }
 
 __device__ __forceinline__ float round_dec(float v, float scale) {
@@ -256,7 +225,7 @@ __global__ void __launch_bounds__(kThreads)
 lowlat_flexible_kernel(const float* __restrict__ x, int n, const float2* __restrict__ tw,
                        const float* __restrict__ fs, int k, int m_budget, int refine,
                        int* iout, float* fout, float2* ws, int cap, bool fft_smem) {
-  extern __shared__ __align__(16) float flex_smem[];  // not `smem`: the rigid kernel's type differs
+  extern __shared__ __align__(16) float flex_smem[];
   __shared__ Scratch<kWarps> sc;
   __shared__ int s_pick[kSlots];
   __shared__ float s_prom[kSlots];
@@ -349,88 +318,201 @@ lowlat_flexible_kernel(const float* __restrict__ x, int n, const float2* __restr
   for (int s = tid; s < k; s += nt) out.refined[s] = refine ? refine_slot(m, h, out.idx[s], ds) : 0.f;
 }
 
+// The rigid kernel's list key: ascending keys are raw magnitudes descending,
+// bins ascending.  A candidate lies above a threshold >= 0, so its bits
+// order as an unsigned integer.
+__device__ __forceinline__ unsigned long long rigid_key(float v, int i) {
+  return ((unsigned long long)(~__float_as_uint(v)) << 32) | (unsigned)i;
+}
+
+// What the rigid kernel's block does when warp 0's rounds stop.
+enum Next : int { kDone, kNextBatch, kFromRow };
+
 __global__ void __launch_bounds__(kThreads)
-lowlat_rigid_kernel(const float* __restrict__ x, int n1, int n2, FourStepTables t,
+lowlat_rigid_kernel(const float* __restrict__ x, int n, const float2* __restrict__ tw,
                     const float* __restrict__ fs, int k, int refine, int* iout, float* fout,
-                    float* ws, bool mags_smem, bool work_smem, bool b_smem) {
-  extern __shared__ float smem[];
+                    float2* ws, int cap, bool fft_smem) {
+  extern __shared__ __align__(16) float rigid_smem[];
   __shared__ Scratch<kWarps> sc;
-  __shared__ int s_count;
+  __shared__ int s_pick[kSlots];
+  __shared__ int s_acc[kAccepted];
+  __shared__ int n_listed, s_next;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const int n = n1 * n2;
+  const int lane = tid & 31;
   const int h = n / 2;
-  const Arrays a = carve_rigid(smem, ws, n, mags_smem, work_smem, b_smem);
+  float* w = rigid_smem;  // the magnitudes, wiped in place by the greedy
+  const Summaries sm = {w + h, w + h + n_chunks(h)};
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(w + h + 2 * n_chunks(h));
+  float2* a = fft_smem ? reinterpret_cast<float2*>(keys + cap) : ws;
+  float2* c = a + padded(h);
   const Out out = outputs(iout, fout, k);
-  if (tid == 0) s_count = 0;
-  front_end(x, n1, n2, t, a.b, a.mags, sc);
-  const float* m = a.mags;
-  float* w = a.work;
+  if (tid == 0) n_listed = 0;
+
+  // Front end, as the flexible kernel's: the mean, the centred pack, the
+  // FFT, the split into the magnitudes.
+  float total = 0.f;
+  for (int i = tid; i < n; i += nt) total = __fadd_rn(total, x[i]);
+  total = block_reduce(total, SumF(), sc.f);
+  pack_row<true>(x, __fdiv_rn(total, (float)n), a, h, tid, nt);
+  __syncthreads();
+  fft_passes(a, c, h, tid, nt, tw);
+  split_mags(a, tw, w, h, tid, nt);
+  __syncthreads();
+  // The unwiped magnitudes, for the refine, in the free exchange buffer.
+  float* m = reinterpret_cast<float*>(c);
+  for (int i = tid; i < h; i += nt) m[i] = w[i];
+  build_summaries(w, h, sm);  // read after noise_threshold's barriers
 
   float sd;
-  const float thr = noise_threshold(m, h, sc, &sd);
-  int c = 0;
-  for (int i = tid; i < h; i += nt) {
-    c += is_candidate(m, h, i, thr) ? 1 : 0;
-    w[i] = m[i];
+  const float thr = noise_threshold(w, h, sc, &sd);
+  compact_candidates(w, h, thr, keys, cap, &n_listed);
+  __syncthreads();
+  const int n_cand = n_listed;
+  // Rigid mode ranks by the raw magnitude: the keys get it in place of the
+  // rounded score.
+  for (int q = tid; q < min(n_cand, cap); q += nt) {
+    const int i = (int)(keys[q] & 0xffffffffu);
+    keys[q] = rigid_key(w[i], i);
   }
-  const int n_cand = block_reduce(c, SumI(), sc.i);  // its barrier publishes w
+  __syncthreads();
   const float ds = __fdiv_rn(*fs, (float)n);
 
-  int count = 0;
+  // The greedy.  Warp 0 runs the rounds; the block ranks the next kSlots
+  // list entries when warp 0 has passed the last ones, or, once the list or
+  // the edge set has outgrown its room, selects each round's peak from the
+  // row.  Warp 0's state: the acceptances, the rank p of the list's first
+  // entry not yet known to be wiped, and the edge candidates (lane l holds
+  // slots l and l + 32; -1 is free).
+  bool from_row = n_cand > cap;
+  int lo = 0;  // rank of s_pick[0]
+  int count = 0, p = 0, edge0 = -1, edge1 = -1;
   while (true) {
-    // The highest current local maximum above the original threshold,
-    // first index on ties.
-    Pick best = {-INFINITY, h};
-    for (int i = tid; i < h; i += nt) {
-      if (!is_candidate(w, h, i, thr)) continue;
-      const Pick p = {w[i], i};
-      if (before(p, best)) best = p;
-    }
-    best = block_reduce(best, First(), sc.p);
-    if (best.i >= h) break;  // no candidate left
-    const int j = best.i;
-    const float peak = best.s;
-    // -3 dB width on the current magnitudes: nearest index at or below
-    // 0.707*peak on each side (left defaults to 0, right to h).
-    const float half = __fmul_rn(0.707f, peak);
-    I2 st = {0, h};
-    for (int i = tid; i < h; i += nt) {
-      if (w[i] <= half) {
-        if (i <= j) st.a = max(st.a, i);
-        if (i >= j) st.b = min(st.b, i);
+    Pick row = {-INFINITY, h};  // loses to every candidate
+    if (from_row) {
+      for (int i = tid; i < h; i += nt) {
+        if (!is_candidate(w, h, i, thr)) continue;
+        const Pick q = {w[i], i};
+        if (before(q, row)) row = q;
       }
+      row = block_reduce(row, First(), sc.p);
+    } else {
+      rank_picks(keys, n_cand, lo, min(n_cand, lo + kSlots), s_pick);
+      __syncthreads();
     }
-    st = block_reduce(st, MaxMinI(), sc.i2);
-    if (tid == 0) {
-      // Accepted peaks' own widths are 0 on the wiped spectrum, so the
-      // Rayleigh term is 1.18*|di|/w_new against each of them.
-      const float w_new = (float)(st.b - st.a);
-      bool separated = true;
-      for (int s = 0; s < count; ++s) {
-        const float di = (float)abs(out.idx[s] - j);
-        const float rs = w_new != 0.f ? __fdiv_rn(__fmul_rn(1.18f, di), w_new) : 0.f;
-        separated = separated && rs >= 1.5f;
+    if (tid < 32) {
+      Next next = kDone;
+      while (true) {
+        Pick best = row;
+        if (!from_row) {
+          // The list's first entry still a candidate (a wipe is the only
+          // way an original candidate stops being one), 32 ranks a ballot.
+          const int hi = min(n_cand, lo + kSlots);
+          while (p < hi) {
+            const int r = p + lane;
+            const unsigned live =
+                __ballot_sync(kFull, r < hi && is_candidate(w, h, s_pick[r - lo], thr));
+            if (live) {
+              p += __ffs(live) - 1;
+              break;
+            }
+            p = min(p + 32, hi);
+          }
+          if (p == hi && hi < n_cand) {
+            next = kNextBatch;
+            break;
+          }
+          if (p < hi) best = {w[s_pick[p - lo]], s_pick[p - lo]};
+          if (__any_sync(kFull, edge0 >= 0 || edge1 >= 0)) {
+            Pick e = {-INFINITY, h};
+            if (edge0 >= 0) e = {w[edge0], edge0};
+            if (edge1 >= 0 && before(Pick{w[edge1], edge1}, e)) e = {w[edge1], edge1};
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1) e = First()(e, shfl(e, o));
+            if (before(e, best)) best = e;
+          }
+        }
+        if (best.i >= h) break;  // no candidate left
+        const int j = best.i;
+        const float peak = best.s;
+        // The wipe: round(f*0.02/df) bins each side, taken or not.  Clamped
+        // so that a round always wipes its own bin; only a rate that is not
+        // positive and finite reaches the clamp.
+        const int nd = min(max(discard_count(__fmul_rn((float)j, ds), ds), 0), h);
+        const int start = max(0, j - nd);
+        const int end = min(h, j + nd + 1);
+        // -3 dB width on the current magnitudes: the nearest bin at or
+        // below 0.707*peak on each side, j included (left defaults to 0,
+        // right to h).
+        const float half = __fmul_rn(0.707f, peak);
+        const auto low = [half](float v) { return v <= half; };
+        const auto chunk_low = [half](float cmin, float) { return cmin <= half; };
+        const int st_a = warp_walk<-1, false>(w, h, j, low, chunk_low, sm, nullptr);
+        const int st_b = warp_walk<1, false>(w, h, j, low, chunk_low, sm, nullptr);
+        // Accepted peaks' own widths are 0 on the wiped spectrum, so the
+        // Rayleigh term is 1.18*|di|/w_new against each of them.
+        const float w_new = (float)((st_b < 0 ? h : st_b) - max(st_a, 0));
+        bool separated = true;
+        for (int s = lane; s < count; s += 32) {
+          const float di = (float)abs((s < kAccepted ? s_acc[s] : out.idx[s]) - j);
+          const float rs = w_new != 0.f ? __fdiv_rn(__fmul_rn(1.18f, di), w_new) : 0.f;
+          separated = separated && rs >= 1.5f;
+        }
+        if (__all_sync(kFull, separated)) {
+          if (lane == 0) {
+            if (count < kAccepted) s_acc[count] = j;
+            out.idx[count] = j;
+            out.freq[count] = __fmul_rn((float)j, ds);
+            out.mag[count] = peak;
+          }
+          ++count;
+        }
+        // Wipe, and zero the minimum summary of every chunk the wipe touches.
+        for (int i = start + lane; i < end; i += 32) w[i] = 0.f;
+        for (int cc = (start >> 5) + lane; cc <= (end - 1) >> 5; cc += 32) sm.min[cc] = 0.f;
+        __syncwarp();
+        if (count >= k) break;
+        if (from_row) {
+          next = kFromRow;
+          break;
+        }
+        // Free the edge slots the wipe took, then keep the bins just
+        // outside it that are candidates now.
+        if (edge0 >= 0 && !is_candidate(w, h, edge0, thr)) edge0 = -1;
+        if (edge1 >= 0 && !is_candidate(w, h, edge1, thr)) edge1 = -1;
+        bool full = false;
+#pragma unroll
+        for (int side = 0; side < 2; ++side) {
+          const int b = side == 0 ? start - 1 : end;
+          if (!is_candidate(w, h, b, thr) || __any_sync(kFull, edge0 == b || edge1 == b)) continue;
+          const unsigned free0 = __ballot_sync(kFull, edge0 < 0);
+          const unsigned free1 = __ballot_sync(kFull, edge1 < 0);
+          if (free0) {
+            if (lane == __ffs(free0) - 1) edge0 = b;
+          } else if (free1) {
+            if (lane == __ffs(free1) - 1) edge1 = b;
+          } else {
+            full = true;
+          }
+        }
+        if (full) {
+          next = kFromRow;
+          break;
+        }
       }
-      if (separated) {
-        out.idx[count] = j;
-        out.freq[count] = __fmul_rn((float)j, ds);
-        out.mag[count] = peak;
-        ++count;
-      }
-      s_count = count;
+      if (tid == 0) s_next = next;
     }
-    // Wipe round(f*0.02/df) bins each side, taken or not.
-    // Clamped so that a round always wipes its own bin; only a rate that
-    // is not positive and finite reaches the clamp.
-    const int nd = min(max(discard_count(__fmul_rn((float)j, ds), ds), 0), h);
-    const int end = min(h, j + nd + 1);
-    for (int i = max(0, j - nd) + tid; i < end; i += nt) w[i] = 0.f;
     __syncthreads();
-    if (s_count >= k) break;
+    const int next = s_next;
+    if (next == kDone) break;
+    if (next == kNextBatch) {
+      lo += kSlots;
+    } else {
+      from_row = true;
+    }
   }
   if (tid == 0) {
-    out.scalars[0] = s_count;
+    out.scalars[0] = count;
     out.scalars[1] = n_cand;
     out.scalars[2] = 0;  // rigid mode has no budget
   }
@@ -444,27 +526,21 @@ extern "C" {
 
 // Floats of global workspace one launch at window length n needs (0 when
 // every array fits in shared memory).
-long long apda_lowlat_workspace_floats(int n, int rigid) {
-  return (long long)layout(n, rigid != 0).ws_floats;
-}
+long long apda_lowlat_workspace_floats(int n) { return (long long)layout(n).ws_floats; }
 
-// Analyses the window x ([n1*n2] float32, contiguous, 16-byte aligned) on
-// `stream` with `threads` threads (a multiple of 32, at most 1024).  Rigid
-// mode reads the four-step tables `_tables(n1, n2)` (cs1 .. s2h), flexible
-// mode the twiddle table `_twiddle_table(n1*n2)`; the other pointers may be
-// null.  fs is a 1-element device float.  Outputs: iout [k + 3] int32,
-// fout [6*k] float32 (layout at `Out`).  `ws` holds
-// apda_lowlat_workspace_floats(n, rigid) floats (may be null when that is
+// Analyses the window x ([n] float32, contiguous, 16-byte aligned) on
+// `stream` with `threads` threads (a multiple of 32, at most 1024), in rigid
+// mode or flexible mode at budget m_budget, against the twiddle table
+// `_twiddle_table(n)` ([n/2] float2).  fs is a 1-element device float.
+// Outputs: iout [k + 3] int32, fout [6*k] float32 (layout at `Out`).  `ws`
+// holds apda_lowlat_workspace_floats(n) floats (may be null when that is
 // 0).  Returns the cudaError_t of the launch (0 on success).
-int apda_lowlat_window(int rigid, const float* x, int n1, int n2, const float* cs1,
-                       const float* twc, const float* tws, const float* c2h, const float* s2h,
-                       const float* twiddle, const float* fs, int k, int m_budget, int refine,
-                       int* iout, float* fout, float* ws, int threads, int device,
-                       void* stream) {
+int apda_lowlat_window(int rigid, const float* x, int n, const float* twiddle, const float* fs,
+                       int k, int m_budget, int refine, int* iout, float* fout, float* ws,
+                       int threads, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int n = n1 * n2;
-  const Layout l = layout(n, rigid != 0);
+  const Layout l = layout(n);
   if (!l.mags_smem || (l.ws_floats > 0 && ws == nullptr) || k < 1 || threads < 32 ||
       threads > kThreads || threads % 32 != 0) {
     return (int)cudaErrorInvalidValue;
@@ -484,14 +560,14 @@ int apda_lowlat_window(int rigid, const float* x, int n1, int n2, const float* c
     if (err != cudaSuccess) return (int)err;
     if (opted != nullptr) *opted = l.smem_bytes;
   }
+  const float2* tw = reinterpret_cast<const float2*>(twiddle);
+  float2* ws2 = reinterpret_cast<float2*>(ws);
   if (rigid) {
-    const FourStepTables t = {cs1, twc, tws, c2h, s2h};
-    lowlat_rigid_kernel<<<1, threads, l.smem_bytes, s>>>(
-        x, n1, n2, t, fs, k, refine, iout, fout, ws, l.mags_smem, l.work_smem, l.b_smem);
+    lowlat_rigid_kernel<<<1, threads, l.smem_bytes, s>>>(x, n, tw, fs, k, refine, iout, fout,
+                                                         ws2, l.list_cap, l.fft_smem);
   } else {
     lowlat_flexible_kernel<<<1, threads, l.smem_bytes, s>>>(
-        x, n, reinterpret_cast<const float2*>(twiddle), fs, k, m_budget, refine, iout, fout,
-        reinterpret_cast<float2*>(ws), l.list_cap, l.b_smem);
+        x, n, tw, fs, k, m_budget, refine, iout, fout, ws2, l.list_cap, l.fft_smem);
   }
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,8 @@
 // one warp.
 //
 // Included by prominence_select_scan.cu (B1), prominence_scans.cu (B5) and
-// lowlat_window.cu (the flexible kernel, B2).  Every value is an order, a
+// lowlat_window.cu (both single-window kernels, B2 and B3).  A row may lie
+// in shared or in device memory.  Every value is an order, a
 // compare, a min or max, or the reference's explicitly rounded arithmetic,
 // so a warp's scan gives the same bits as the masked-reduction scans of the
 // plain twins (ops/peaks_prominence.py `_prominence_and_width`), however

@@ -16,7 +16,10 @@ Counterpart of ``apda_fft_tpu/ops/detector_pallas.py``:
 Dispatch is by the tensor's device: a CPU tensor runs the plain twin
 (:func:`_prominence_select_scan_plain`, :func:`_prominence_scans_plain`); a
 CUDA tensor launches the kernel or raises.  ``launches`` and
-``scan_launches`` count kernel launches.
+``scan_launches`` count kernel launches.  Both kernels take rows of any
+length: a row that does not fit in a block's shared memory stays in device
+memory, and the wrapper allocates the global workspace the kernel asks for
+its chunk summaries when they do not fit either.
 """
 
 from __future__ import annotations
@@ -38,10 +41,6 @@ launches = 0
 #: Scans-only kernel launches so far (one per call on a CUDA tensor with slots).
 scan_launches = 0
 
-#: Largest spectrum the kernel takes: the row lives in shared memory, and a
-#: block may use 227 KB of it on Hopper (1 KB kept for the reduction scratch).
-MAX_H = (227 * 1024 - 1024) // 4
-
 #: Threads of a scans-kernel block, 128 or 256 (both keep 2048 threads on
 #: an SM): within 2 % of each other at M=32 on an H100
 #: (``chip_profile.py --block-sizes``, PERF.md).
@@ -61,11 +60,14 @@ def _kernel_fn():
         fn.restype = ctypes.c_int
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            *([ctypes.c_void_p] * 7), ctypes.c_int, ctypes.c_void_p,
+            *([ctypes.c_void_p] * 8), ctypes.c_int, ctypes.c_void_p,
         ]
+        ws = lib.apda_select_scan_workspace_floats
+        ws.restype = ctypes.c_longlong
+        ws.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.apda_cuda_error_string.restype = ctypes.c_char_p
         lib.apda_cuda_error_string.argtypes = [ctypes.c_int]
-        _fn = (fn, lib.apda_cuda_error_string)
+        _fn = (fn, ws, lib.apda_cuda_error_string)
     return _fn
 
 
@@ -77,20 +79,19 @@ def _scans_kernel_fn():
         fn.restype = ctypes.c_int
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            *([ctypes.c_void_p] * 5), ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            *([ctypes.c_void_p] * 6), ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
+        ws = lib.apda_scans_workspace_floats
+        ws.restype = ctypes.c_longlong
+        ws.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.apda_cuda_error_string.restype = ctypes.c_char_p
         lib.apda_cuda_error_string.argtypes = [ctypes.c_int]
-        _scans_fn = (fn, lib.apda_cuda_error_string)
+        _scans_fn = (fn, ws, lib.apda_cuda_error_string)
     return _scans_fn
 
 
-def _check_h(h: int) -> None:
-    if h > MAX_H:
-        raise ValueError(
-            f"H={h} does not fit the detector kernel's shared memory "
-            f"(H*4 bytes must be <= {MAX_H * 4}); N >= 131072 is not supported on CUDA yet"
-        )
+def _workspace(floats: int, device: torch.device) -> torch.Tensor | None:
+    return torch.empty(floats, dtype=torch.float32, device=device) if floats else None
 
 
 def _prominence_select_scan_plain(mags: torch.Tensor, max_candidates: int):
@@ -128,7 +129,6 @@ def prominence_select_scan(mags: torch.Tensor, max_candidates: int):
         return _prominence_select_scan_plain(mags, m)
     if mags.device.type != "cuda":
         raise ValueError(f"no detector for device {mags.device}")
-    _check_h(h)
     cid = mags.new_empty((b, m), dtype=torch.int32)
     is_cand = mags.new_empty((b, m), dtype=torch.bool)
     cmag = mags.new_empty((b, m))
@@ -138,11 +138,13 @@ def prominence_select_scan(mags: torch.Tensor, max_candidates: int):
     n_cand = mags.new_empty((b,), dtype=torch.int32)
     if b == 0:
         return cid, is_cand, cmag, proms, bins, std, n_cand
-    fn, err_str = _kernel_fn()
+    fn, ws_floats, err_str = _kernel_fn()
+    ws = _workspace(ws_floats(b, h), mags.device)
     rc = fn(
         mags.data_ptr(), b, h, m,
         cid.data_ptr(), is_cand.data_ptr(), cmag.data_ptr(), proms.data_ptr(),
         bins.data_ptr(), std.data_ptr(), n_cand.data_ptr(),
+        ws.data_ptr() if ws is not None else None,
         mags.device.index, torch.cuda.current_stream(mags.device).cuda_stream,
     )
     if rc != 0:
@@ -214,15 +216,16 @@ def prominence_scans(mags: torch.Tensor, cid: torch.Tensor, cmag: torch.Tensor,
         return _prominence_scans_plain(mags, cid, cmag, n_valid)
     if mags.device.type != "cuda":
         raise ValueError(f"no detector for device {mags.device}")
-    _check_h(h)
     prom = torch.empty((b, m), dtype=torch.float32, device=mags.device)
     bins = torch.empty((b, m), dtype=torch.int32, device=mags.device)
     if b == 0 or m == 0:
         return prom, bins
-    fn, err_str = _scans_kernel_fn()
+    fn, ws_floats, err_str = _scans_kernel_fn()
+    ws = _workspace(ws_floats(b, h), mags.device)
     rc = fn(
         mags.data_ptr(), b, h, m, cid.data_ptr(), cmag.data_ptr(), n_valid.data_ptr(),
-        prom.data_ptr(), bins.data_ptr(), _SCANS_THREADS,
+        prom.data_ptr(), bins.data_ptr(), ws.data_ptr() if ws is not None else None,
+        _SCANS_THREADS,
         mags.device.index, torch.cuda.current_stream(mags.device).cuda_stream,
     )
     if rc != 0:

@@ -4,21 +4,22 @@ Counterpart of ``apda_fft_tpu/ops/latency_pallas.py``.
 :func:`analyze_window_lowlat` analyses ONE full window - mean-centring, the
 half-spectrum magnitudes, the detector, the finalize and the optional
 sub-bin refine - in a single launch of a hand-written CUDA kernel
-(``csrc/lowlat_window.cu``), one per mode: flexible (an FFT front end and
-the select+scan kernel's warp walks) and rigid (a four-step front end and
-block reductions).  At one window the batched pipeline is a chain of many
-small launches; the kernel is one.
+(``csrc/lowlat_window.cu``), one per mode, both on an FFT front end and the
+select+scan kernel's selection: flexible (all picks scanned by warps at
+once, then the ordered finalize) and rigid (the destructive greedy on one
+warp, over the raw-magnitude ranking and the chunk summaries).  At one
+window the batched pipeline is a chain of many small launches; the kernel
+is one.
 
 Dispatch is by the window's device: a CPU tensor runs
 :func:`_analyze_window_lowlat_plain`, the same pipeline in plain torch; a
 CUDA tensor launches the kernel or raises.  ``launches`` counts kernel
 launches per kernel.
 
-Each kernel reads only tables built in float64 on the host and cached per
-window length and device: the flexible one the FFT's twiddle table
-``ops.fft_cuda._twiddle_table`` (the batched front-end kernel's), the rigid
-one the four-step tables ``ops.fft_cuda._tables``.  They take windows of 64
-to ``LOWLAT_MAX_N`` samples: the magnitudes must fit in one block's shared
+Both kernels read only the FFT's twiddle table, built in float64 on the
+host and cached per window length and device: ``ops.fft_cuda._twiddle_table``
+(the batched front-end kernel's).  They take windows of 64 to
+``LOWLAT_MAX_N`` samples: the magnitudes must fit in one block's shared
 memory.
 """
 
@@ -31,8 +32,8 @@ import torch
 
 from apda_fft_tpu_torch.models.pipeline import _placed, default_k, refine_subbin
 from apda_fft_tpu_torch.models.results import EpochResult
-from apda_fft_tpu_torch.ops.fft import halfspec_magnitudes, is_pow2, next_pow2, split_pow2
-from apda_fft_tpu_torch.ops.fft_cuda import _tables, _twiddle_table
+from apda_fft_tpu_torch.ops.fft import halfspec_magnitudes, is_pow2, next_pow2
+from apda_fft_tpu_torch.ops.fft_cuda import _twiddle_table
 from apda_fft_tpu_torch.ops.peaks_prominence import (
     _prominence_and_width,
     prominence_finalize,
@@ -49,10 +50,18 @@ launches = {"lowlat_flexible": 0, "lowlat_rigid": 0}
 #: shared memory (227 KB on Hopper), the rest spills to a global workspace.
 LOWLAT_MAX_N = 65536
 
-#: Threads of a block, per kernel (a multiple of 32, at most 1024).  The
-#: flexible kernel at 512 was the fastest of 256 / 512 / 1024 on an H100 at
-#: cfg2 (N=4096) and at M=64 (``chip_profile.py --block-sizes``, PERF.md).
-_THREADS = {"flexible": 512, "rigid": 1024}
+#: Threads of a block per kernel, pinned (a multiple of 32, at most 1024), or
+#: None for the count by window length of :func:`_block_threads`.
+_THREADS: dict[str, int | None] = {"flexible": None, "rigid": None}
+
+
+def _block_threads(mode: str, n: int) -> int:
+    """N/8 threads, at least 256 and at most 1024: on an H100 the fastest of
+    256 / 512 / 1024 for both kernels at N = 1024, 4096, 16384 and 65536
+    (``chip_profile.py --block-sizes``, PERF.md).  Longer windows have more
+    FFT butterflies and bins a pass; shorter ones gain from the shorter
+    block reductions and barriers of fewer warps."""
+    return _THREADS[mode] or min(1024, max(256, n // 8))
 
 _KERNEL = "lowlat_window"
 _fn = None
@@ -65,23 +74,17 @@ def _kernel_fn():
         fn = lib.apda_lowlat_window
         fn.restype = ctypes.c_int
         fn.argtypes = [
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            *([ctypes.c_void_p] * 7), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         ws = lib.apda_lowlat_workspace_floats
         ws.restype = ctypes.c_longlong
-        ws.argtypes = [ctypes.c_int, ctypes.c_int]
+        ws.argtypes = [ctypes.c_int]
         lib.apda_cuda_error_string.restype = ctypes.c_char_p
         lib.apda_cuda_error_string.argtypes = [ctypes.c_int]
         _fn = (fn, ws, lib.apda_cuda_error_string)
     return _fn
-
-
-def _latency_split(n: int) -> tuple[int, int]:
-    """Four-step split of the latency kernel: the balanced ``split_pow2``."""
-    return split_pow2(n)
 
 
 def _analyze_window_lowlat_plain(
@@ -124,22 +127,17 @@ def _launch(x: torch.Tensor, fs: torch.Tensor, *, mode: str, k: int, budget: int
         )
     rigid = mode == "rigid"
     fn, ws_floats, err_str = _kernel_fn()
-    n1, n2 = _latency_split(n)
-    if rigid:
-        tables = (*_tables(n1, n2, x.device), None)
-    else:
-        tables = (None,) * 5 + (_twiddle_table(n, x.device),)
-    if x.data_ptr() % 16:  # the flexible kernel reads the window as float4
+    table = _twiddle_table(n, x.device)
+    if x.data_ptr() % 16:  # the kernels read the window as float4
         x = x.clone()
     iout = torch.empty(k + 3, dtype=torch.int32, device=x.device)
     fout = torch.empty(6 * k, dtype=torch.float32, device=x.device)
-    nws = ws_floats(n, int(rigid))
+    nws = ws_floats(n)
     ws = torch.empty(nws, dtype=torch.float32, device=x.device) if nws else None
     rc = fn(
-        int(rigid), x.data_ptr(), n1, n2,
-        *(t.data_ptr() if t is not None else None for t in tables), fs.data_ptr(),
+        int(rigid), x.data_ptr(), n, table.data_ptr(), fs.data_ptr(),
         k, budget, int(refine), iout.data_ptr(), fout.data_ptr(),
-        ws.data_ptr() if ws is not None else None, _THREADS[mode],
+        ws.data_ptr() if ws is not None else None, _block_threads(mode, n),
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
     name = "lowlat_rigid" if rigid else "lowlat_flexible"

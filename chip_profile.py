@@ -3,6 +3,7 @@
     python3 chip_profile.py            # items 1-3 below, ~2 min on an H100
     python3 chip_profile.py --skip-cpu-probe
     python3 chip_profile.py --block-sizes   # item 4 only
+    python3 chip_profile.py --sass OTHER_TREE   # item 5 only
 
 1. profile: flexible ``analyze_epoch`` (refine, lowlat="never") on the
    B=2048 x N=4096 clean and noisy corpora of ``chip_smoke.py``, after two
@@ -20,13 +21,19 @@
    (the setting in which ``chip_smoke.py``'s CPU reference once went
    wrong); a last child runs the CPU front end with oneDNN's and MKL's
    verbose logs on and reports which GEMM paths it took;
-4. block sizes: the profiler's device time of the flexible single-window
-   kernel at 256, 512 and 1024 threads (``latency_cuda._THREADS``) on cfg2's
-   window (N=4096, budget 2), the 71-candidate window at M=64 and a
-   two-tone window at N=65536, and of the scans kernel at 128 and 256
+4. block sizes: the profiler's device time of the single-window kernels
+   at 256, 512 and 1024 threads (pinned in ``latency_cuda._THREADS``) on
+   two-tone windows at N=1024 (cfg1's), 4096 (cfg2's), 16384 and 65536,
+   and of the flexible one also on the 71-candidate window at M=64; and of
+   the scans kernel at 128 and 256
    threads (``detector_cuda._SCANS_THREADS``) on the noisy spectra at M in
    {12, 32, 128}; each order is mirrored (A-B-B-A) and every size gives the
    same decisions.
+5. compiled code: every ``apda_fft_tpu_torch/csrc/*.cu`` of this tree and of
+   another checkout (``--sass OTHER_TREE``, e.g. a ``git archive`` of the
+   parent commit) built to SASS with the kernels' own nvcc flags; per
+   kernel, its registers and spills (ptxas) and whether its SASS is the
+   same, with addresses, encodings and namespace hashes left out.
 
 Every line carries the card's name and power limit.  Exit code 0 unless a
 check fails; the probe's mismatches are reported, not raised.
@@ -36,9 +43,12 @@ from __future__ import annotations
 
 import argparse
 import collections
+import glob
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -48,6 +58,7 @@ import chip_smoke
 from apda_fft_tpu_torch.models import pipeline
 from apda_fft_tpu_torch.ops import detector_cuda, latency_cuda, peaks_prominence
 from apda_fft_tpu_torch.ops.fft import halfspec_magnitudes
+from apda_fft_tpu_torch.utils import kernels
 
 FS, N_FFT, BATCH = chip_smoke.FS, chip_smoke.N_FFT, chip_smoke.BATCH
 log = chip_smoke.log
@@ -175,28 +186,35 @@ def cpu_probe(corpora: dict[str, np.ndarray], card: str) -> None:
 
 def block_sizes(noisy: np.ndarray, card: str) -> None:
     fs = torch.tensor(FS, device="cuda")
-    windows = (("cfg2 N=4096 budget 2", chip_smoke.clean_batch(1, 4096)[0], 2),
-               ("71-candidate window N=4096 M=64", chip_smoke.overflow_window(), 64),
-               ("two-tone N=65536 budget 2", chip_smoke.clean_batch(1, 65536)[0], 2))
+    two_tone = chip_smoke.clean_batch
+    windows = (("flexible", "two-tone N=1024 budget 2", two_tone(1, 1024)[0], 2),
+               ("flexible", "cfg2 N=4096 budget 2", two_tone(1, 4096)[0], 2),
+               ("flexible", "71-candidate window N=4096 M=64", chip_smoke.overflow_window(), 64),
+               ("flexible", "two-tone N=16384 budget 2", two_tone(1, 16384)[0], 2),
+               ("flexible", "two-tone N=65536 budget 2", two_tone(1, 65536)[0], 2),
+               ("rigid", "cfg1 N=1024", two_tone(1, 1024)[0], 2),
+               ("rigid", "two-tone N=4096", two_tone(1, 4096)[0], 2),
+               ("rigid", "two-tone N=16384", two_tone(1, 16384)[0], 2),
+               ("rigid", "two-tone N=65536", two_tone(1, 65536)[0], 2))
     saved = dict(latency_cuda._THREADS)
     try:
-        for label, xn, m in windows:
+        for mode, label, xn, m in windows:
             x = torch.from_numpy(xn).cuda()
 
             def run():
-                return latency_cuda.analyze_window_lowlat(x, fs, mode="flexible",
-                                                          max_candidates=m, refine=True)
+                return latency_cuda.analyze_window_lowlat(x, fs, mode=mode, max_candidates=m,
+                                                          refine=True)
 
             times = collections.defaultdict(list)
             decisions = set()
             for threads in (1024, 512, 256, 256, 512, 1024):
-                latency_cuda._THREADS["flexible"] = threads
+                latency_cuda._THREADS[mode] = threads
                 res = run()
                 decisions.add(tuple(torch.cat([res.idx[0], res.count, res.n_candidates,
                                                res.n_required]).tolist()))
-                times[threads].append(chip_smoke._kernel_device_ms(run, "lowlat_flexible"))
+                times[threads].append(chip_smoke._kernel_device_ms(run, f"lowlat_{mode}"))
             assert len(decisions) == 1, (label, decisions)
-            log(f"[block sizes] lowlat_flexible {label}: device ms " + "; ".join(
+            log(f"[block sizes] lowlat_{mode} {label}: device ms " + "; ".join(
                 f"{t} threads {' / '.join(f'{v:.4f}' for v in times[t])}" for t in sorted(times))
                 + f" (profiler, mean of 20; same decisions; {card})")
     finally:
@@ -226,11 +244,76 @@ def block_sizes(noisy: np.ndarray, card: str) -> None:
         detector_cuda._SCANS_THREADS = saved
 
 
+def _sass(tree: str, name: str, out_dir: str) -> tuple[dict[str, list[str]], dict[str, str]]:
+    """{kernel: normalized SASS lines} and {kernel: ptxas usage} of
+    ``<tree>/apda_fft_tpu_torch/csrc/<name>.cu``."""
+    csrc = os.path.join(tree, "apda_fft_tpu_torch", "csrc")
+    cubin = os.path.join(out_dir, f"{abs(hash(tree))}_{name}.cubin")
+    flags = [f for f in kernels.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    proc = subprocess.run([kernels.nvcc_path(), *flags, "-cubin", "-Xptxas", "-v", "-I", csrc,
+                           "-o", cubin, os.path.join(csrc, name + ".cu")],
+                          capture_output=True, text=True, check=True, timeout=600)
+    usage, current = {}, None
+    for line in proc.stderr.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
+        if m:
+            current = _anon(m.group(1))
+        elif current and ("registers" in line or "spill" in line):
+            usage[current] = (usage.get(current, "") + " " + line.split(":", 1)[-1].strip()).strip()
+    cuobjdump = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True, text=True,
+                          check=True, timeout=600).stdout
+    funcs, current = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            current = _anon(m.group(1))
+            funcs[current] = []
+            continue
+        line = re.sub(r"/\*[0-9a-f]{4}\*/|/\* 0x[0-9a-f]+ \*/", "", line)
+        line = " ".join(_anon(line).split())
+        if current and line and not line.startswith("/* 0x"):
+            funcs[current].append(line)
+    return funcs, usage
+
+
+def _anon(text: str) -> str:
+    """Mangled names with the anonymous namespace's per-file hash left out."""
+    return re.sub(r"_ZN\d+_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}", "ANON", text)
+
+
+def sass_compare(other: str, card: str) -> None:
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as out_dir:
+        for src in sorted(glob.glob(os.path.join(kernels.CSRC_DIR, "*.cu"))):
+            name = os.path.basename(src)[:-3]
+            mine, mine_use = _sass(here, name, out_dir)
+            theirs, their_use = ({}, {}) if not os.path.exists(
+                os.path.join(other, "apda_fft_tpu_torch", "csrc", name + ".cu")) else _sass(
+                    other, name, out_dir)
+            for kernel in sorted(set(mine) | set(theirs)):
+                if kernel not in theirs:
+                    verdict = f"new ({len(mine[kernel])} SASS lines)"
+                elif kernel not in mine:
+                    verdict = "gone"
+                elif mine[kernel] == theirs[kernel]:
+                    verdict = f"same SASS ({len(mine[kernel])} lines)"
+                else:
+                    verdict = (f"SASS differs ({len(theirs[kernel])} -> {len(mine[kernel])} "
+                               f"lines)")
+                log(f"[sass] {name}.cu {kernel}: {verdict}; ptxas here: "
+                    f"{mine_use.get(kernel, '-')}; there: {their_use.get(kernel, '-')}")
+    log(f"[sass] this tree against {other}; {card}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--skip-cpu-probe", action="store_true")
     parser.add_argument("--block-sizes", action="store_true",
                         help="only time the kernels' block sizes (item 4)")
+    parser.add_argument("--sass", metavar="OTHER_TREE",
+                        help="only compare the kernels' compiled code with another "
+                             "checkout's (item 5)")
     parser.add_argument("--cpu-probe-child", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--cpu-gemm-child", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args()
@@ -243,6 +326,10 @@ def main() -> int:
         print(cpu_mismatch(chip_smoke.clean_batch(256)))
         return 0
     card = chip_smoke.phase_device()
+    if args.sass:
+        sass_compare(args.sass, card)
+        log(card)
+        return 0
     corpora = {"clean": chip_smoke.clean_batch(BATCH), "noisy": chip_smoke.noisy_batch(BATCH)}
     if args.block_sizes:
         block_sizes(corpora["noisy"], card)

@@ -11,11 +11,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
    with nvcc (sm_90a), all four at once, and prints the seconds each took;
 3. kernel vs plain on the card: the select+scan kernel against its plain
    torch version on four spectrum corpora at H in {32, 128, 2048, 32768}
-   and M in {2, 12, 32, 128}, at H=55000 and the longest H the kernel
-   takes (no room for its chunk summaries: walks bin by bin), and on
-   H=32768 rows with more candidates than its shared candidate list holds
-   (its select-from-the-row route) - integers equal, floats within rtol
-   1e-6;
+   and M in {2, 12, 32, 128}, at H=55000 and the longest H it keeps in
+   shared memory (no room for its chunk summaries: walks bin by bin), on
+   rows that stay in device memory (H in {57857, 65536, 131072}, and
+   H=2**20, whose summaries go to the workspace), and on H=32768 and
+   H=131072 rows with more candidates than its candidate list holds (the
+   select-from-the-row route) - integers equal, floats within rtol 1e-6;
 4. spectrum accuracy: the four-step magnitudes against float64 numpy.fft,
    <= 1e-6 normwise at N in {1024, 4096, 65536};
 5. main path: ``analyze_epoch`` (flexible, refine, lowlat="never") on the
@@ -25,7 +26,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    version on its own spectra (at its budget and at the path's other
    budgets); decisions are checked against the port's CPU run (256
    windows) and the float64 oracle (32 windows); one rigid and one adaptive
-   epoch (B=256) are checked against the CPU run;
+   epoch (B=256) are checked against the CPU run; one flexible and one
+   adaptive epoch at N=131072 (B=16: damped modes, and undamped tones that
+   adaptive mode hands to the resolution detector; rows past the kernel's
+   shared memory) against the CPU run and the oracle (4 windows);
 6. times (CUDA events, warm-up, median of 20, plain-kernel-kernel-plain
    order): kernel vs plain at B=2048, H=2048, M in {2, 12, 32, 128}, and
    whole epochs in windows/s beside the front end and the detect stage
@@ -37,7 +41,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    (32768 the first N whose flexible FFT buffers go to the global
    workspace) and flexible budgets {2, 8, 16, 64} - integers equal, ``mag`` within rtol
    1e-5 (one 4-dp step where rounded), ``freq`` within one 4-dp step,
-   damping and q within one 2-dp step, ``refined_freq`` within 1e-3 Hz;
+   damping and q within one 2-dp step, ``refined_freq`` within 1e-3 Hz; the
+   rigid kernel's integers also equal ``lowlat="never"`` and the float64
+   oracle, there and on two windows past its shared room: one whose edge
+   candidates outgrow their 64 slots mid-run (k=100) and one with 5000
+   candidates, more than its list holds;
 8. the single-window route: ``analyze_epoch(x[None], fs)`` with the default
    ``lowlat`` for cfg1 (N=1024, rigid) and cfg2 (N=4096, flexible, refine)
    and on ``tests/signals.modal_signal`` windows at (1024, 500),
@@ -49,8 +57,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
 9. latency times for cfg1 and cfg2: the kernel alone (device time from
    ``torch.profiler``, and CUDA events over back-to-back calls), the routed
    ``analyze_epoch``, ``lowlat="never"`` and the plain version (host wall
-   clock with synchronize, median of 50), and the flexible kernel at
-   M=64 on the 71-candidate window and at N=65536 (device time and call);
+   clock with synchronize, median of 50), the flexible kernel at M=64 on
+   the 71-candidate window and at N=65536, and the rigid kernel on
+   two-tone windows at N=4096 and N=65536 (device time and call);
 10. fused front end (``backend="pallas"``) vs plain on the card:
    ``fft_cuda.halfspec_magnitudes_fused`` on centred modal, noise, impulse
    and flat windows at N in {64, 1024, 4096, 16384, 32768, 65536} (16384 the
@@ -70,7 +79,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    one window with ``backend="pallas"`` launches the front-end kernel and
    not the latency kernels;
 12. pre-selected scans vs plain on the card: ``prominence_scans`` on the
-   four spectrum corpora of phase 3 at H in {32, 2048, 32768} and M in
+   four spectrum corpora of phase 3 at H in {32, 2048, 32768, 65536} (the
+   last in device memory) and M in
    {2, 12, 32, 128}, on the select+scan kernel's slots - integers equal,
    floats within rtol 1e-6, and the same bits as the select+scan kernel's
    prominences and widths on its valid slots; then hand-made slots on the
@@ -150,6 +160,11 @@ WALL_RUNS = 50
 #: FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+#: Longest row the select+scan kernel keeps in shared memory (its
+#: kSharedMaxH): 227 KB less 1 KB of static scratch, in floats.
+B1_SHARED_MAX_H = (227 * 1024 - 1024) // 4
+#: Window length of the long-row epochs of phase 5.
+N_LONG = 131072
 
 
 def log(msg: str) -> None:
@@ -306,11 +321,12 @@ def _kernel_equals_plain(mags: torch.Tensor, m: int, got, case: str) -> float:
 
 def overflow_spectra(b: int, h: int = 32768) -> np.ndarray:
     """Rows with 5000 strict maxima above the threshold, more than the
-    select+scan kernel's shared candidate list holds (4096 keys): odd bins
-    1..9999 at 6 or 7 (2232 and 2768 of them, shuffled per row, so rounded
-    scores tie everywhere), zero elsewhere.  The mean is exactly 1 and every
-    squared deviation an integer, so the threshold's sums are exact in any
-    order and the kernel's std must equal the plain version's."""
+    select+scan kernel's candidate list holds (4096 keys): odd bins 1..9999
+    at 6 or 7 (2232 and 2768 of them, shuffled per row, so rounded scores
+    tie everywhere), zero elsewhere.  The sum is 32768, so at h = 32768 or
+    131072 the mean (1 or 1/4) and every squared deviation are multiples of
+    1/16 whose sums fit in float32's 24 bits: the threshold's sums are exact
+    in any order and the kernel's std must equal the plain version's."""
     rng = np.random.default_rng(h)
     x = np.zeros((b, h), np.float32)
     levels = np.array([6.0] * 2232 + [7.0] * 2768, np.float32)
@@ -335,27 +351,38 @@ def phase_kernel_vs_plain() -> float:
                 worst = max(worst, err)
             log(f"[3 kernel==plain] {kind:5s} H={h:5d} B={b}: max|float diff| at "
                 f"M=2/12/32/128 = {', '.join(f'{d:.3g}' for d in diffs)}")
-    # Rows this long leave no room for the chunk summaries, so the walks go
-    # bin by bin: at H=55000 on the candidate list, at the longest H the
-    # kernel takes (no room for a list either) on the select-from-the-row route.
-    for h in (55000, detector_cuda.MAX_H):
+    cases = 64
+    # Long rows.  In shared memory, no room for the chunk summaries, so the
+    # walks go bin by bin: at H=55000 on the candidate list, at the longest
+    # row kept there (no room for a list either) on the select-from-the-row
+    # route.  Past it the row stays in device memory, its summaries and list
+    # in shared memory; at H=2**20 the summaries go to the workspace.
+    for h, budgets, where in ((55000, (2, 12, 32, 128), "shared, no chunk summaries"),
+                              (B1_SHARED_MAX_H, (2, 12, 32, 128), "shared, no list"),
+                              (B1_SHARED_MAX_H + 1, (2, 12, 32, 128), "device memory"),
+                              (65536, (2, 12, 32, 128), "device memory"),
+                              (131072, (2, 12, 32, 128), "device memory"),
+                              (1 << 20, (2, 12), "device memory, summaries in the workspace")):
         mags = torch.from_numpy(spectra(2, h, seed=5, kind="modal")).cuda()
         diffs = [_kernel_equals_plain(mags, m, prominence_select_scan(mags, m),
-                                      f"modal H={h} M={m}") for m in (2, 12, 32, 128)]
+                                      f"modal H={h} M={m}") for m in budgets]
         worst = max(worst, *diffs)
-        log(f"[3 kernel==plain] modal H={h} B=2 (no chunk summaries): max|float diff| at "
-            f"M=2/12/32/128 = {', '.join(f'{d:.3g}' for d in diffs)}")
-    mags = torch.from_numpy(overflow_spectra(4)).cuda()
-    diffs = []
-    for m in (2, 12, 32, 128):
-        got = prominence_select_scan(mags, m)
-        assert int(got[6].min()) > 4096, got[6].tolist()  # past the shared list
-        diffs.append(_kernel_equals_plain(mags, m, got, f"overflow H=32768 M={m}"))
-    worst = max(worst, *diffs)
-    log(f"[3 kernel==plain] overflow H=32768 B=4 (n_cand {got[6].tolist()}): max|float "
-        f"diff| at M=2/12/32/128 = {', '.join(f'{d:.3g}' for d in diffs)}")
+        cases += len(budgets)
+        log(f"[3 kernel==plain] modal H={h} B=2 ({where}): max|float diff| at "
+            f"M={'/'.join(map(str, budgets))} = {', '.join(f'{d:.3g}' for d in diffs)}")
+    for h in (32768, 131072):
+        mags = torch.from_numpy(overflow_spectra(4, h)).cuda()
+        diffs = []
+        for m in (2, 12, 32, 128):
+            got = prominence_select_scan(mags, m)
+            assert int(got[6].min()) > 4096, got[6].tolist()  # past the candidate list
+            diffs.append(_kernel_equals_plain(mags, m, got, f"overflow H={h} M={m}"))
+        worst = max(worst, *diffs)
+        cases += 4
+        log(f"[3 kernel==plain] overflow H={h} B=4 (n_cand {got[6].tolist()}): max|float "
+            f"diff| at M=2/12/32/128 = {', '.join(f'{d:.3g}' for d in diffs)}")
     assert detector_cuda.launches > before, "the kernel was never launched"
-    log(f"[3 kernel==plain] all 76 cases equal; launches {detector_cuda.launches - before}; "
+    log(f"[3 kernel==plain] all {cases} cases equal; launches {detector_cuda.launches - before}; "
         f"max abs float diff {worst:.3g}")
     return worst
 
@@ -455,6 +482,30 @@ def phase_main_path_kernel_calls(calls) -> float:
     return worst
 
 
+def long_batch() -> np.ndarray:
+    """Phase 5's N=131072 epoch (B=16): twelve windows of four lightly
+    damped modes near 10, 18, 30 and 45 Hz (``tests/signals.py``
+    ``modal_signal``, seeds 0..11; the prominence detector accepts all four
+    within its first ~20 candidates), then four of two undamped tones on
+    exact bins (3000 and 11000), whose one-bin peaks fail its damping floor,
+    so adaptive mode hands them to the resolution detector."""
+    signals = _load_module("apda_signals", "signals.py")
+    rows = []
+    for seed in range(12):
+        rng = np.random.default_rng(seed)
+        modes = [(f * rng.uniform(0.96, 1.04), rng.uniform(1.0, 2.0), rng.uniform(0.002, 0.004))
+                 for f in (10.0, 18.0, 30.0, 45.0)]
+        rows.append(signals.modal_signal(N_LONG, FS, modes=modes, noise=0.01, seed=seed))
+    t = np.arange(N_LONG) / FS
+    for seed in range(4):
+        rng = np.random.default_rng(100 + seed)
+        phase = rng.uniform(0, 2 * np.pi, 2)
+        rows.append(np.sin(2 * np.pi * (3000 * FS / N_LONG) * t + phase[0])
+                    + 0.6 * np.sin(2 * np.pi * (11000 * FS / N_LONG) * t + phase[1])
+                    + 0.05 * rng.standard_normal(N_LONG) + 0.1)
+    return np.stack(rows).astype(np.float32)
+
+
 def phase_main_path(corpora: dict[str, np.ndarray]) -> tuple[int, float]:
     """Drive analyze_epoch on the card; returns the kernel launches it made
     and the max abs float error of its kernel calls against plain."""
@@ -483,12 +534,25 @@ def phase_main_path(corpora: dict[str, np.ndarray]) -> tuple[int, float]:
             log(f"[5 main path] {name} epoch {epoch}: count>0 in "
                 f"{int((res.count > 0).sum())}/{x.shape[0]} windows; {stats}")
         results[name], budgets[name] = res, stats
+    # Rows past the kernel's shared memory: N=131072.
+    long_x = long_batch()
+    long_res = {}
+    before_long = detector_cuda.launches
+    for mode in ("flexible", "adaptive"):
+        res = pipeline.analyze_epoch(torch.from_numpy(long_x).cuda(), FS, n_fft=N_LONG,
+                                     mode=mode, refine=True, lowlat="never")
+        torch.cuda.synchronize()
+        long_res[mode] = (res, dict(pipeline.last_dynamic_stats()))
+        log(f"[5 main path] N={N_LONG} {mode} B={long_x.shape[0]}: counts "
+            f"{res.count.tolist()}; {long_res[mode][1]}")
+    long_launches = detector_cuda.launches - before_long
     launches = detector_cuda.launches
     detector_cuda.prominence_select_scan = wrapper
     log(f"[5 main path] dynamic_state {pipeline.dynamic_state()}")
     log(f"[5 main path] kernel launches on the main path: {launches} "
         f"(calls at {[(tuple(c[0].shape), c[1]) for c in calls]})")
     assert launches > 0, "the main path never launched the detector kernel"
+    assert long_launches > 0, f"the N={N_LONG} epochs never launched the detector kernel"
     assert launches == len(calls), (launches, len(calls))
     assert budgets["noisy"]["tier"] is not None, "the noisy epoch did not run two-tier"
     max_err = phase_main_path_kernel_calls(calls)
@@ -529,6 +593,19 @@ def phase_main_path(corpora: dict[str, np.ndarray]) -> tuple[int, float]:
                      (("freq", 1e-4, 1e-6), ("mag", 1e-4, 1e-5)), f"{mode} vs CPU")
         log(f"[5 main path] {mode} B=256 ({name}): decisions equal to the CPU run; "
             f"count>0 in {int((gpu.count > 0).sum())} windows")
+    for mode, (gpu, stats) in long_res.items():
+        cpu = _cpu_reference(torch.tensor(long_x), FS, n_fft=N_LONG, mode=mode, refine=True,
+                             lowlat="never", max_candidates=stats["candidate_budget"])
+        _assert_same(gpu, cpu, ("count", "idx", "n_candidates", "n_required"),
+                     (("freq", 1e-4, 1e-6), ("mag", 1e-4, 1e-5)), f"N={N_LONG} {mode} vs CPU")
+        for i in (0, 1, 12, 13):
+            want = oracle.oracle_analyze(long_x[i].astype(np.float64), FS, mode)
+            c = int(gpu.count[i])
+            assert gpu.idx[i, :c].tolist() == [p["idx"] for p in want], (mode, i)
+        assert bool((gpu.count[12:] > 0).all()) == (mode == "adaptive"), gpu.count.tolist()
+        log(f"[5 main path] N={N_LONG} {mode}: {long_x.shape[0]} windows equal to the CPU run "
+            f"at budget {stats['candidate_budget']}, windows 0, 1, 12, 13 to the float64 "
+            f"oracle; kernel launches {long_launches} for both epochs")
     return launches, max_err
 
 
@@ -603,6 +680,47 @@ def overflow_window(n: int = 4096) -> np.ndarray:
                for b in range(1100, 1313, 3)).astype(np.float32)
 
 
+def rigid_edge_window(n: int = 16384) -> np.ndarray:
+    """A window whose rigid greedy outgrows the kernel's 64 edge slots.  Its
+    spectrum: at bins j = 40, ... up to 8 % of the half spectrum, a spike
+    on a ramp down to its two ends at nd + 1 bins each side, nd =
+    round(0.02*j) the greedy's wipe count; zero elsewhere; random phases.
+    Spikes (1.3 up) and ends (1.0 up) rise 0.002 a cluster and the right
+    end is 0.001 above the left, so no two local maxima tie.  Each spike's
+    wipe empties its ramp but for its two ends, which become local maxima
+    above the threshold; the spikes are taken first, so after 33 of them
+    more than 64 such bins wait and the kernel selects from the row
+    (``tests/test_torch_rigid_plan.py`` holds its model to that)."""
+    h = n // 2
+    rng = np.random.default_rng(n)
+    mags = np.zeros(h + 1)
+    j, i = 40, 0
+    while j < 0.08 * h:
+        nd = int(np.round(0.02 * j))
+        top = 1.3 + 0.002 * i
+        mags[j - nd - 1:j + 1] = np.linspace(1.0 + 0.002 * i, top, nd + 2)
+        mags[j:j + nd + 2] = np.linspace(top, 1.001 + 0.002 * i, nd + 2)
+        j, i = j + 2 * nd + 5, i + 1
+    spec = mags * np.exp(2j * np.pi * rng.random(h + 1))
+    spec[0] = 0.0
+    spec[h] = spec[h].real
+    return np.fft.irfft(spec, n).astype(np.float32)
+
+
+def rigid_list_window(n: int = 65536) -> np.ndarray:
+    """A window with 5000 strict maxima above the threshold, more than the
+    single-window kernels' candidate list holds (4096 keys): tones on the odd
+    bins 1..9999 at magnitudes 6, 6.0001, ..., 6.4999 in shuffled order (no
+    two tie; random phases), so the rigid kernel selects every round's peak
+    from the row."""
+    rng = np.random.default_rng(n)
+    spec = np.zeros(n // 2 + 1, complex)
+    odd = np.arange(1, 10000, 2)
+    levels = 6.0 + 1e-4 * rng.permutation(odd.size)
+    spec[odd] = levels * np.exp(2j * np.pi * rng.random(odd.size))
+    return np.fft.irfft(spec, n).astype(np.float32)
+
+
 def _lowlat_plain(x, fs, mode, k, budget, refine):
     return latency_cuda._analyze_window_lowlat_plain(
         x, fs, n_fft=x.shape[-1], mode=mode, k=k, budget=min(budget, x.shape[-1] // 2),
@@ -635,6 +753,7 @@ def phase_lowlat_vs_plain() -> dict[str, float]:
     """Both latency kernels against their plain version on the card; returns
     the max abs float difference per kernel."""
     fs = torch.tensor(FS, device="cuda")
+    oracle = _load_oracle()
     worst = {"lowlat_flexible": 0.0, "lowlat_rigid": 0.0}
     cases = 0
     for n in LOWLAT_NS:
@@ -647,12 +766,47 @@ def phase_lowlat_vs_plain() -> dict[str, float]:
                         x, fs, mode=mode, max_candidates=m, refine=True)
                     want = _lowlat_plain(x, fs, mode, got.k, m, True)
                     err = _lowlat_equals_plain(got, want, mode, f"{kind} N={n} {mode} M={m}")
+                    if mode == "rigid":
+                        # Rigid decisions compare raw magnitudes: also against
+                        # the batched path and the float64 oracle.
+                        never = pipeline.analyze_epoch(x[None], FS, n_fft=n, mode="rigid",
+                                                       refine=True, lowlat="never")
+                        _assert_same(got, never, ("count", "idx", "n_candidates"), (),
+                                     f"{kind} N={n} rigid vs lowlat=never")
+                        ref = oracle.oracle_analyze(x.cpu().numpy().astype(np.float64), FS,
+                                                    "rigid")
+                        c = int(got.count[0])
+                        assert got.idx[0, :c].tolist() == [p["idx"] for p in ref], (kind, n)
                     key = f"lowlat_{mode}"
                     worst[key] = max(worst[key], err)
                     line.append(f"{mode[0]}{m if mode == 'flexible' else ''}:"
                                 f"{int(got.count[0])}/{int(got.n_candidates[0])}")
                     cases += 1
-            log(f"[7 lowlat==plain] {kind:7s} N={n:5d}: equal (count/n_cand {' '.join(line)})")
+            log(f"[7 lowlat==plain] {kind:7s} N={n:5d}: equal (count/n_cand {' '.join(line)}); "
+                f"rigid also equal to lowlat=never and the float64 oracle")
+    # The rigid kernel's routes past its shared room: the edge set outgrown
+    # mid-run (66 acceptances, past the 64 it keeps in shared memory), and a
+    # candidate list outgrown from the start.
+    for name, xn, k in (("edge-set overflow", rigid_edge_window(), 100),
+                        ("list overflow", rigid_list_window(), 5)):
+        n = xn.shape[-1]
+        x = torch.from_numpy(xn).cuda()
+        got = latency_cuda.analyze_window_lowlat(x, fs, mode="rigid", k=k, refine=True)
+        want = _lowlat_plain(x, fs, "rigid", k, 2, True)
+        worst["lowlat_rigid"] = max(worst["lowlat_rigid"], _lowlat_equals_plain(
+            got, want, "rigid", f"{name} N={n} rigid"))
+        never = pipeline.analyze_epoch(x[None], FS, n_fft=n, mode="rigid", k=k, refine=True,
+                                       lowlat="never")
+        _assert_same(got, never, ("count", "idx", "n_candidates"), (),
+                     f"{name} N={n} rigid vs lowlat=never")
+        ref = oracle.oracle_resolution_peaks(oracle.oracle_spectrum(xn.astype(np.float64)), FS,
+                                             k=k)
+        c = int(got.count[0])
+        assert got.idx[0, :c].tolist() == [p["idx"] for p in ref], name
+        cases += 1
+        log(f"[7 lowlat==plain] rigid {name} N={n} k={k}: count {c}, n_cand "
+            f"{int(got.n_candidates[0])}; equal to the plain version, lowlat=never and the "
+            f"float64 oracle")
     log(f"[7 lowlat==plain] all {cases} cases equal; launches {latency_cuda.launches}; "
         f"max abs float diff {worst}")
     return worst
@@ -825,6 +979,17 @@ def phase_lowlat_times(card: str) -> dict[str, tuple[float, float]]:
     log(f"[9 times] flexible kernel at N={n}, budget 2 (two-tone window): device "
         f"{dev_ms:.4f} ms (profiler), call {k_ms:.4f} ms, plain {p_ms:.4f} ms (CUDA events); "
         f"{card}")
+    for n in (4096, latency_cuda.LOWLAT_MAX_N):
+        x = torch.from_numpy(clean_batch(1, n)[0]).cuda()
+        kernel = lambda: latency_cuda.analyze_window_lowlat(  # noqa: E731
+            x, fs, mode="rigid", refine=True)
+        res = kernel()
+        k_ms = event_ms(kernel)
+        p_ms = event_ms(lambda: _lowlat_plain(x, fs, "rigid", 5, 2, True))
+        dev_ms = _kernel_device_ms(kernel, "lowlat_rigid")
+        log(f"[9 times] rigid kernel at N={n} (two-tone window, count "
+            f"{int(res.count[0])}, n_cand {int(res.n_candidates[0])}): device {dev_ms:.4f} ms "
+            f"(profiler), call {k_ms:.4f} ms, plain {p_ms:.4f} ms (CUDA events); {card}")
     pipeline.reset_dynamic_state()
     return out
 
@@ -1005,6 +1170,10 @@ def phase_pallas_path(corpora: dict[str, np.ndarray]) -> tuple[int, float]:
 # ---------------------------------------------------------------- pre-selected scans
 
 
+#: Rows of phase 12; at 65536 the scans kernel reads the row from device memory.
+SCANS_HS = (32, 2048, 32768, 65536)
+
+
 def phase_scans_vs_plain(corpora: dict[str, np.ndarray]) -> tuple[int, float]:
     """The scans kernel against its plain twin and against the select+scan
     kernel on that kernel's own picks, then ``prominence_peaks_batch`` on
@@ -1013,7 +1182,7 @@ def phase_scans_vs_plain(corpora: dict[str, np.ndarray]) -> tuple[int, float]:
     worst = 0.0
     cases = 0
     for kind in ("modal", "noise", "flat", "ties"):
-        for h in (32, 2048, 32768):
+        for h in SCANS_HS:
             b = 16 if h > 4096 else 64
             mags = torch.from_numpy(spectra(b, h, seed=h + len(kind), kind=kind)).cuda()
             diffs = []
@@ -1076,7 +1245,7 @@ def phase_scans_hand_made() -> float:
     worst = 0.0
     cases = 0
     for kind in ("modal", "noise", "flat", "ties"):
-        for h in (32, 2048, 32768):
+        for h in SCANS_HS:
             b = 16 if h > 4096 else 64
             mags = torch.from_numpy(spectra(b, h, seed=h + len(kind), kind=kind)).cuda()
             cid, is_cand, cmag, _, _, _, _ = prominence_select_scan(mags, 12)

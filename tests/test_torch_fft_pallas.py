@@ -102,7 +102,8 @@ def test_validation_errors():
 
 
 def test_tables_are_the_latency_kernels():
-    assert latency_cuda._tables is fft_cuda._tables
+    """The single-window kernels run this kernel's FFT on its twiddle table."""
+    assert latency_cuda._twiddle_table is fft_cuda._twiddle_table
 
 
 @pytest.mark.parametrize("mode", ["flexible", "rigid", "adaptive"])

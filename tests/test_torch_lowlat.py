@@ -16,7 +16,9 @@ import pytest
 import torch
 
 from apda_fft_tpu.ops import latency_pallas as jlat
+from apda_fft_tpu_torch.ops import fft_cuda
 from apda_fft_tpu_torch.ops import latency_cuda as tlat
+from apda_fft_tpu_torch.ops.fft import split_pow2
 from tests.oracle import oracle_analyze
 from tests.signals import modal_signal
 
@@ -118,9 +120,11 @@ def test_budget_overflow_reported():
 
 @pytest.mark.parametrize("n", [64, 1024, 4096])
 def test_tables_bit_equal_to_jax(n):
-    n1, n2 = tlat._latency_split(n)
+    """The four-step tables of the plain twin's front end (the kernels now
+    run an FFT on ``fft_cuda._twiddle_table``) are the JAX kernel's bits."""
+    n1, n2 = split_pow2(n)
     assert (n1, n2) == jlat._latency_split(n)
-    for got, want in zip(tlat._tables(n1, n2), jlat._tables(n1, n2)):
+    for got, want in zip(fft_cuda._tables(n1, n2), jlat._tables(n1, n2)):
         want = np.asarray(want)
         assert got.dtype == torch.float32 and got.shape == want.shape
         np.testing.assert_array_equal(got.numpy(), want)

@@ -3,9 +3,9 @@
 The kernels run only on the card; two parts of their plan are checked here:
 
 * ``layout()``, mirrored from the source's constants: for every window
-  length the route takes and both modes, the shared-memory part fits the
-  227 KB a block may use, the magnitudes are always in it, and the flexible
-  kernel's FFT buffers go to the global workspace only from N = 32768 on,
+  length the route takes (one layout for both modes), the shared-memory
+  part fits the 227 KB a block may use, the magnitudes are always in it,
+  and the FFT buffers go to the global workspace only from N = 32768 on,
   beside a candidate list that holds every candidate (``H/4 + 2`` keys, at
   most 4096);
 * the flexible kernel's finalize: its picks are scanned in rounds of 64,
@@ -42,29 +42,21 @@ SLOTS = _constant("lowlat_window.cu", "kSlots")
 MAX_LIST = _constant("walk_common.cuh", "kMaxList")
 
 
-def layout(n: int, rigid: bool) -> dict:
-    """``layout()`` of lowlat_window.cu."""
+def layout(n: int) -> dict:
+    """``layout()`` of lowlat_window.cu, the same for both kernels."""
     h = n // 2
-    out = {"smem": 0, "ws": 0, "mags_smem": False, "b_smem": False, "list_cap": 0}
-
-    def place(floats: int) -> bool:
-        if out["smem"] + 4 * floats <= SMEM_CAP:
-            out["smem"] += 4 * floats
-            return True
-        out["ws"] += floats
-        return False
-
-    out["mags_smem"] = place(h)
-    if rigid:
-        out["work_smem"] = place(h)
-        out["b_smem"] = place(2 * n)
-        return out
+    out = {"smem": 0, "ws": 0, "mags_smem": False, "fft_smem": False, "list_cap": 0}
+    if 4 * h <= SMEM_CAP:
+        out["smem"] = 4 * h
+        out["mags_smem"] = True
+    else:
+        out["ws"] = h
     out["smem"] += 8 * ((h + 31) // 32)
     full = min(h // 4 + 2, MAX_LIST) & ~1
     padded = h + (h >> 4)
     if out["smem"] + 8 * full + 16 * padded <= SMEM_CAP:
         out["smem"] += 16 * padded
-        out["b_smem"] = True
+        out["fft_smem"] = True
     else:
         out["ws"] += 4 * padded
     room = max(SMEM_CAP - out["smem"], 0) // 8
@@ -80,19 +72,39 @@ def test_lengths_cover_the_route():
     assert LENGTHS[0] == 64 and LENGTHS[-1] == latency_cuda.LOWLAT_MAX_N == 65536
 
 
+def _static_scratch_bytes(kernel: str) -> int:
+    """Bytes of the kernel's static shared arrays: the reduction scratch of
+    32 warps (4 + 4 + 8 + 8 bytes a warp) and its ``__shared__`` arrays and
+    scalars, read from the source."""
+    with open(os.path.join(kernels.CSRC_DIR, "lowlat_window.cu")) as f:
+        text = f.read()
+    body = text[text.index(f"{kernel}("):]
+    body = body[:body.index("const int tid")]
+    sizes = {"kSlots": SLOTS, "kAccepted": _constant("lowlat_window.cu", "kAccepted")}
+    total = 32 * (4 + 4 + 8 + 8)
+    for decl in re.findall(r"__shared__ (?:int|float) ([^;]+);", body):
+        for name in decl.split(","):
+            m = re.search(r"\[(\w+)\]", name)
+            total += 4 * (sizes[m.group(1)] if m else 1)
+    return total
+
+
 @pytest.mark.parametrize("rigid", [False, True])
 @pytest.mark.parametrize("n", LENGTHS)
 def test_shared_part_fits_and_holds_the_magnitudes(n, rigid):
-    lay = layout(n, rigid)
+    lay = layout(n)
     assert lay["mags_smem"]
     # The static scratch (reductions, pick slots) stays inside the 2 KB kept.
     assert SMEM_CAP == BLOCK_SMEM - 2048
+    kernel = "lowlat_rigid_kernel" if rigid else "lowlat_flexible_kernel"
+    assert _static_scratch_bytes(kernel) <= 2048
     assert lay["smem"] + 2048 <= BLOCK_SMEM
-    if not rigid:
-        h = n // 2
-        assert lay["list_cap"] == min(h // 4 + 2, MAX_LIST) & ~1  # every candidate fits
-        assert lay["b_smem"] == (n <= 16384)
-        assert lay["ws"] == (0 if n <= 16384 else 4 * (h + (h >> 4)))
+    h = n // 2
+    assert lay["list_cap"] == min(h // 4 + 2, MAX_LIST) & ~1  # every candidate fits
+    assert lay["fft_smem"] == (n <= 16384)
+    assert lay["ws"] == (0 if n <= 16384 else 4 * (h + (h >> 4)))
+    # The rigid kernel keeps its unwiped magnitudes in the free FFT buffer.
+    assert 2 * (h + (h >> 4)) >= h
 
 
 def kernel_finalize(cid, cmag, prom, bins, fs, n_fft, k, std, n_cand, m):
