@@ -1,4 +1,4 @@
-"""apda_fft_tpu_torch - the epoch pipeline of ``apda_fft_tpu`` on PyTorch and CUDA.
+"""apda_fft_tpu_torch - the spectral pipeline of ``apda_fft_tpu`` on PyTorch and CUDA.
 
 A port of the JAX package beside it, module for module and name for name.
 It imports torch and numpy only.  The flexible-mode detector's fused
@@ -8,7 +8,10 @@ single-window latency pipeline (:func:`analyze_window_lowlat`, flexible and
 rigid) run as hand-written CUDA kernels for Hopper (``sm_90a``) on CUDA
 tensors and as plain torch on CPU tensors.  An epoch runs on the card: a
 tensor's on its own device, an array or list on CUDA unless ``device="cpu"``
-is given (without a CUDA device an array raises ``RuntimeError``).
+is given (without a CUDA device an array raises ``RuntimeError``).  Ragged
+records (:func:`analyze_records`), streams
+(:func:`analyze_stream`, :func:`analyze_epochs_pipelined`), Welch averaging
+and cross spectra run on the same kernels.
 
 Quick start::
 
@@ -17,6 +20,7 @@ Quick start::
     result.freq, result.mag, result.count
 """
 
+from apda_fft_tpu_torch.models.batching import RecordPeaks, analyze_records
 from apda_fft_tpu_torch.models.pipeline import (
     PipelineConfig,
     SpectralPipeline,
@@ -30,6 +34,17 @@ from apda_fft_tpu_torch.models.pipeline import (
     steady_state_max_candidates,
 )
 from apda_fft_tpu_torch.models.results import EpochResult
+from apda_fft_tpu_torch.models.streaming import (
+    analyze_epochs_pipelined,
+    analyze_stream,
+    analyze_welch,
+    coherence,
+    coherence_with_phase,
+    cross_psd,
+    frame_records,
+    spectrogram,
+    welch_psd,
+)
 from apda_fft_tpu_torch.ops.detector_cuda import (
     prominence_peaks_batch,
     prominence_peaks_fused,
@@ -38,6 +53,7 @@ from apda_fft_tpu_torch.ops.detector_cuda import (
 from apda_fft_tpu_torch.ops.latency_cuda import analyze_window_lowlat
 from apda_fft_tpu_torch.ops.fft import (
     center_and_pad,
+    full_spectrum,
     halfspec_magnitudes,
     next_pow2,
     taper_window,
@@ -53,14 +69,24 @@ __all__ = [
     "EpochResult",
     "PipelineConfig",
     "ProminencePeaks",
+    "RecordPeaks",
     "ResolutionPeaks",
     "SpectralPipeline",
     "analyze_epoch",
+    "analyze_epochs_pipelined",
+    "analyze_records",
+    "analyze_stream",
+    "analyze_welch",
     "analyze_window_lowlat",
     "center_and_pad",
+    "coherence",
+    "coherence_with_phase",
+    "cross_psd",
     "default_k",
     "detect_from_mags",
     "dynamic_state",
+    "frame_records",
+    "full_spectrum",
     "halfspec_magnitudes",
     "last_dynamic_stats",
     "load_dynamic_state",
@@ -71,6 +97,8 @@ __all__ = [
     "prominence_select_scan",
     "reset_dynamic_state",
     "resolution_peaks",
+    "spectrogram",
     "steady_state_max_candidates",
     "taper_window",
+    "welch_psd",
 ]

@@ -91,7 +91,41 @@ def _placed(x, device: torch.device | str | None, dtype: torch.dtype | None = No
                 "(or device='cpu' to analyze_epoch / PipelineConfig) to run on the CPU"
             )
         device = "cuda"
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    return _from_host(np.asarray(x), device, dtype)
+
+
+#: Host arrays up to this many bytes are copied to the card from pageable
+#: memory; larger ones go through pinned memory.  On the H100 a pageable
+#: ``non_blocking`` copy of up to 1 MiB was the faster one and did not wait
+#: for queued card work, while one of 4 MiB waited for it (``chip_smoke.py``
+#: phase 18 times both ways across sizes).
+_PAGEABLE_MAX_BYTES = 1 << 20
+
+
+def _from_host(a: np.ndarray, device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The host array ``a`` as a tensor on ``device``, cast on the host.
+
+    A copy to the card is queued with ``non_blocking`` (a blocking copy
+    would wait for all work queued before it), so a caller can queue the
+    next epoch while the card runs this one.
+    """
+    t = torch.as_tensor(a, dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    if t.nbytes > _PAGEABLE_MAX_BYTES:
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
+def _fs_tensor(fs, dtype: torch.dtype, device) -> torch.Tensor:
+    """Sampling rate(s) ``fs`` as a ``dtype`` tensor on ``device``; a scalar
+    is filled there, so placing it does not wait for the card either."""
+    if isinstance(fs, torch.Tensor):
+        return fs.detach().to(device=device, dtype=dtype)
+    a = np.asarray(fs)
+    if a.ndim == 0:
+        return torch.full((), float(a), dtype=dtype, device=device)
+    return _from_host(a, device, dtype)
 
 
 def _lowlat_device(samples: torch.Tensor) -> bool:
@@ -517,15 +551,11 @@ def analyze_epoch(
         k = default_k(mode)
     lead = samples.shape[:-1]
     fs_orig = fs  # pre-cast rate: the float64 value the rigid wipe rounding needs
-    fs = torch.as_tensor(
-        fs.detach() if isinstance(fs, torch.Tensor) else np.asarray(fs),
-        dtype=dtype, device=dev,
-    )
+    fs = _fs_tensor(fs, dtype, dev)
     if lengths is not None:
-        lengths = torch.as_tensor(
-            lengths if isinstance(lengths, torch.Tensor) else np.asarray(lengths),
-            device=dev,
-        ).to(torch.int32).broadcast_to(lead)
+        if not isinstance(lengths, torch.Tensor):
+            lengths = _from_host(np.asarray(lengths), dev)
+        lengths = lengths.to(device=dev, dtype=torch.int32).broadcast_to(lead)
 
     empty = any(d == 0 for d in lead)
     dynamic = (
@@ -563,7 +593,7 @@ def analyze_epoch(
                    if isinstance(fs_orig, torch.Tensor) else np.asarray(fs_orig, np.float64))
         table = _rigid_corr_batch(fs_host, lead, n_fft)
         if table is not None:
-            half_corr = torch.from_numpy(table).to(dev)
+            half_corr = _from_host(table, dev)
 
     # One full window on a CUDA device: the single-window kernels, inside
     # the envelope the JAX package routes.
@@ -789,8 +819,8 @@ class PipelineConfig:
 class SpectralPipeline:
     """Stateful wrapper: epoch analysis plus per-call process/wall/RSS metrics.
 
-    A ``mesh`` (sharded epochs) and ``welch`` are later slices of the port
-    and raise until then.
+    A ``mesh`` (sharded epochs) is a later slice of the port and raises
+    until then.
     """
 
     def __init__(self, config: PipelineConfig | None = None, mesh=None):
@@ -818,4 +848,27 @@ class SpectralPipeline:
 
     def welch(self, samples, fs, *, window: int, hop: int | None = None,
               taper: str = "hann") -> EpochResult:
-        raise NotImplementedError("Welch-averaged analysis is not ported yet")
+        """Welch-averaged analysis under this pipeline's config and metrics.
+
+        The ``analyze`` hook of
+        :func:`~apda_fft_tpu_torch.models.batching.analyze_records_welch`:
+        mode, k, refine, backend, dtype and device come from the config, and
+        ``last_metrics`` is filled as by ``__call__``.  Only an int
+        ``max_candidates`` carries over; otherwise Welch takes its static
+        default (it has no overflow readback).
+        """
+        from apda_fft_tpu_torch.models.streaming import analyze_welch
+
+        cfg = self.config
+        last_dynamic_stats().clear()
+        with self._metrics.measure():
+            result = analyze_welch(
+                samples, fs, window=window, hop=hop, taper=taper, mode=cfg.mode, k=cfg.k,
+                backend=cfg.backend, refine=cfg.refine, dtype=cfg.dtype,
+                selection=cfg.selection or "auto", precision=cfg.precision,
+                max_candidates=(cfg.max_candidates if isinstance(cfg.max_candidates, int)
+                                else None),
+                device=cfg.device,
+            )
+        self.last_metrics = {**self._metrics.last, **last_dynamic_stats()}
+        return result

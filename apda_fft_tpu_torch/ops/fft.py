@@ -17,6 +17,11 @@ of two, DFT, zero the DC bin.
   CUDA launch of an FFT on a CUDA tensor, its plain torch twin (the
   four-step) on a CPU tensor.  ``[B, N]`` windows only.
 
+Complex spectra (the cross spectra's front end) come from the same
+four-step: :func:`fft_matmul_real` returns ``(re, im)`` of all N bins or the
+first N/2, :func:`rfft_packed_matmul` the first N/2 by the packed real-input
+transform, :func:`full_spectrum` the complex spectrum with DC zeroed.
+
 The numpy table builders are re-stated here (the port never imports the JAX
 package); a test holds them bit-equal to the JAX package's.
 """
@@ -163,6 +168,14 @@ def _twiddle_tables(n1: int, n2: int, dtype_name: str) -> tuple[np.ndarray, np.n
     return np.cos(ang).astype(dtype_name), np.sin(ang).astype(dtype_name)
 
 
+@functools.lru_cache(maxsize=None)
+def _untwist_tables(n: int, dtype_name: str) -> tuple[np.ndarray, np.ndarray]:
+    """(cos, sin) of W_N^k = exp(-2i*pi*k/N) for k = 0..N/2-1 (rfft untwist)."""
+    k = np.arange(n // 2, dtype=np.int64)
+    ang = (-2.0 * np.pi / n) * k.astype(np.float64)
+    return np.cos(ang).astype(dtype_name), np.sin(ang).astype(dtype_name)
+
+
 def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
@@ -224,8 +237,8 @@ def ieee_fp32_matmul():
                     k.fp32_precision = v
 
 
-def _fourstep_magnitudes(x: torch.Tensor, n_out: int) -> torch.Tensor:
-    """|X[k]| for k < n_out by the four-step, in final bin order.
+def _fourstep_pretranspose(x: torch.Tensor, n_out: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Steps 1-3 of the four-step: ``(dr, di)`` in ``[..., n2 (k2), k1_out]``.
 
     With ``a = x.reshape(..., n2, n1)`` (a free view), ``n = m1 + n1*m2`` and
     ``k = k2 + n2*k1``::
@@ -233,13 +246,14 @@ def _fourstep_magnitudes(x: torch.Tensor, n_out: int) -> torch.Tensor:
         X[k2 + n2*k1] = sum_m1 W_n1^{m1*k1} [ W_N^{m1*k2} sum_m2 a[m2, m1] W_n2^{m2*k2} ]
 
     ``k < n_out`` iff ``k1 < n_out / n2``, so step 3 keeps only those columns.
+    Callers apply the step-4 transpose; the magnitude front end takes
+    ``|.|`` first and transposes one array instead of two.
     """
     n = x.shape[-1]
-    lead = x.shape[:-1]
     n1, n2 = split_lanes(n)
     k1_out = n_out // n2
     cs2, tc, ts, c1s1 = _fourstep_tables(n, n_out, x.dtype, x.device)
-    a = x.reshape(*lead, n2, n1)
+    a = x.reshape(*x.shape[:-1], n2, n1)
     # Step 1: DFT over m2, cos and sin rows in one product.
     b = torch.matmul(cs2, a)
     br, bi = b[..., :n2, :], b[..., n2:, :]
@@ -249,11 +263,127 @@ def _fourstep_magnitudes(x: torch.Tensor, n_out: int) -> torch.Tensor:
     # Step 3: DFT over m1 against the stacked [cos | sin] table.
     p = torch.matmul(cr, c1s1)
     q = torch.matmul(ci, c1s1)
-    dr = p[..., :k1_out] - q[..., k1_out:]
-    di = p[..., k1_out:] + q[..., :k1_out]
+    return p[..., :k1_out] - q[..., k1_out:], p[..., k1_out:] + q[..., :k1_out]
+
+
+def _fourstep_magnitudes(x: torch.Tensor, n_out: int) -> torch.Tensor:
+    """|X[k]| for k < n_out by the four-step, in final bin order."""
+    dr, di = _fourstep_pretranspose(x, n_out)
     # |.| before the step-4 transpose: one array through the layout pass.
     dm = torch.sqrt(dr**2 + di**2)
-    return dm.transpose(-1, -2).reshape(*lead, n_out)
+    return dm.transpose(-1, -2).reshape(*x.shape[:-1], n_out)
+
+
+def _direct_dft_real(x: torch.Tensor, n_out: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """First ``n_out`` DFT bins of real ``x`` by one direct table product each."""
+    c, s = _direct_tables(x.shape[-1], n_out, x.dtype, x.device)
+    return torch.matmul(x, c), torch.matmul(x, s)
+
+
+def fft_matmul_real(x: torch.Tensor, half: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Complex DFT of real ``x`` [..., N] as ``(re, im)``, by the four-step.
+
+    ``half=True`` returns only the first N/2 bins (what the detectors and the
+    cross spectra consume): step 3 then keeps only the columns those bins
+    need.  N up to ``_DIRECT_DFT_MAX`` takes one direct table product.  The
+    products run in IEEE float32 (``ieee_fp32_matmul``), against tables built
+    in float64.
+    """
+    n = x.shape[-1]
+    if not is_pow2(n):
+        raise ValueError(f"four-step FFT requires power-of-two length, got {n}")
+    n_out = n // 2 if half and n >= 2 else n
+    with ieee_fp32_matmul():
+        if n <= _DIRECT_DFT_MAX:
+            return _direct_dft_real(x, n_out)
+        dr, di = _fourstep_pretranspose(x, n_out)
+    # Step 4: k = k2 + n2*k1 -> transpose (k2, k1) -> (k1, k2) and flatten.
+    lead = x.shape[:-1]
+    return (dr.transpose(-1, -2).reshape(*lead, n_out),
+            di.transpose(-1, -2).reshape(*lead, n_out))
+
+
+@functools.lru_cache(maxsize=64)
+def _packed_tables(n: int, dtype: torch.dtype, device: torch.device):
+    """Operands of :func:`rfft_packed_matmul` at ``n``: the DFT tables of
+    ``n1`` and ``n2`` (``n/2 = n1*n2``), the twiddles ``[n1, n2]`` and the
+    untwist ``[n/2]``, each (cos, sin), on ``device``."""
+    name = _dtype_name(dtype)
+    n1, n2 = split_pow2(n // 2)
+    host = (*_dft_tables(n1, name), *_dft_tables(n2, name), *_twiddle_tables(n1, n2, name),
+            *_untwist_tables(n, name))
+    return tuple(torch.tensor(t, device=device) for t in host)
+
+
+def rfft_packed_matmul(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """First N/2 DFT bins of real ``x`` [..., N] as ``(re, im)``, packed algorithm.
+
+    Adjacent sample pairs form one complex sequence ``z[m] = x[2m] +
+    i*x[2m+1]`` of length N/2, transformed by the four-step (N/2 = n1*n2) and
+    untwisted::
+
+        E[k] = (Z[k] + conj(Z[(N/2-k) mod N/2])) / 2
+        O[k] = -i*(Z[k] - conj(Z[(N/2-k) mod N/2])) / 2
+        X[k] = E[k] + W_N^k * O[k],   k = 0..N/2-1
+
+    ``x`` reshaped to ``[n1, 2*n2]`` feeds step 1 directly: the even/odd
+    split surfaces only in the output columns of the step-1 products.
+    """
+    n = x.shape[-1]
+    if not is_pow2(n) or n < 4:
+        raise ValueError(f"packed rfft requires power-of-two length >= 4, got {n}")
+    nh = n // 2
+    n1, n2 = split_pow2(nh)
+    lead = x.shape[:-1]
+    c1, s1, c2, s2, tc, ts, wc, ws = _packed_tables(n, x.dtype, x.device)
+    # z[m] = x[2m] + i*x[2m+1], m = m2 + n2*m1.  u[m1, j] = x[j + 2*n2*m1]
+    # (a free view): column j = 2*m2 + c holds component c of z[m2 + n2*m1].
+    u = x.reshape(*lead, n1, 2 * n2)
+    with ieee_fp32_matmul():
+        # Step 1: DFT over m1 for all interleaved columns at once.
+        p = torch.matmul(c1, u)
+        q = torch.matmul(s1, u)
+        pr, pi = p[..., 0::2], p[..., 1::2]
+        qr, qi = q[..., 0::2], q[..., 1::2]
+        br = pr - qi  # Re(DFT_n1 z) = c1@zr - s1@zi
+        bi = qr + pi  # Im(DFT_n1 z) = s1@zr + c1@zi
+        # Step 2: twiddle W_{N/2}^{k1*m2}.
+        cr = br * tc - bi * ts
+        ci = br * ts + bi * tc
+        # Step 3: DFT over m2 (complex), all n2 output columns.
+        zr = torch.matmul(cr, c2) - torch.matmul(ci, s2)
+        zi = torch.matmul(cr, s2) + torch.matmul(ci, c2)
+    # Step 4: Z[k], k = k1 + n1*k2.
+    zr = zr.transpose(-1, -2).reshape(*lead, nh)
+    zi = zi.transpose(-1, -2).reshape(*lead, nh)
+    # Untwist.  rev[k] = (N/2 - k) mod N/2 is a flip followed by a 1-roll.
+    zr_rev = torch.roll(torch.flip(zr, dims=(-1,)), 1, dims=-1)
+    zi_rev = torch.roll(torch.flip(zi, dims=(-1,)), 1, dims=-1)
+    er = 0.5 * (zr + zr_rev)
+    ei = 0.5 * (zi - zi_rev)
+    our = 0.5 * (zi + zi_rev)
+    oi = 0.5 * (zr_rev - zr)
+    return er + wc * our - ws * oi, ei + wc * oi + ws * our
+
+
+def full_spectrum(x: torch.Tensor, backend: str = "xla") -> torch.Tensor:
+    """Full complex spectrum of real windows ``x`` [..., N], DC bin zeroed.
+
+    The caller centres and pads (:func:`center_and_pad`); the DC bin is
+    zeroed after the transform (reference ``fft_iterativa.py:85``).
+    ``"xla"`` is ``torch.fft.fft``; ``"matmul"`` and ``"pallas"`` are
+    :func:`fft_matmul_real`, as in the JAX package (its fused kernel
+    computes magnitudes only).
+    """
+    if backend == "xla":
+        cdtype = torch.complex128 if x.dtype == torch.float64 else torch.complex64
+        spec = torch.fft.fft(x.to(cdtype))
+    elif backend in ("matmul", "pallas"):
+        spec = torch.complex(*fft_matmul_real(x))
+    else:
+        raise ValueError(f"unknown FFT backend {backend!r}; expected one of {BACKENDS}")
+    spec[..., 0] = 0
+    return spec
 
 
 def halfspec_magnitudes(
@@ -280,8 +410,8 @@ def halfspec_magnitudes(
     elif backend == "matmul":
         with ieee_fp32_matmul():
             if n <= _DIRECT_DFT_MAX:
-                c, s = _direct_tables(n, n // 2, x.dtype, x.device)
-                mags = torch.sqrt(torch.matmul(x, c) ** 2 + torch.matmul(x, s) ** 2)
+                re, im = _direct_dft_real(x, n // 2)
+                mags = torch.sqrt(re**2 + im**2)
             else:
                 mags = _fourstep_magnitudes(x, n // 2)
     elif backend == "pallas":

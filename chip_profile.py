@@ -4,6 +4,7 @@
     python3 chip_profile.py --skip-cpu-probe
     python3 chip_profile.py --block-sizes   # item 4 only
     python3 chip_profile.py --sass OTHER_TREE   # item 5 only
+    python3 chip_profile.py --paths         # item 6 only, ~1 min
 
 1. profile: flexible ``analyze_epoch`` (refine, lowlat="never") on the
    B=2048 x N=4096 clean and noisy corpora of ``chip_smoke.py``, after two
@@ -34,6 +35,11 @@
    parent commit) built to SASS with the kernels' own nvcc flags; per
    kernel, its registers and spills (ptxas) and whether its SASS is the
    same, with addresses, encodings and namespace hashes left out.
+6. gateway paths: item 1's profile of ``analyze_records`` (one gateway
+   epoch of 1537 records, flexible, refine), ``analyze_records_welch``
+   (1536 records, window 1024, both front ends) and ``analyze_stream``
+   (BASELINE cfg4 at hop 4096, both front ends), at ``chip_smoke.py``
+   phases 14-16's sizes, inputs from host memory.
 
 Every line carries the card's name and power limit.  Exit code 0 unless a
 check fails; the probe's mismatches are reported, not raised.
@@ -55,7 +61,7 @@ import numpy as np
 import torch
 
 import chip_smoke
-from apda_fft_tpu_torch.models import pipeline
+from apda_fft_tpu_torch.models import batching, pipeline, streaming
 from apda_fft_tpu_torch.ops import detector_cuda, latency_cuda, peaks_prominence
 from apda_fft_tpu_torch.ops.fft import halfspec_magnitudes
 from apda_fft_tpu_torch.utils import kernels
@@ -69,40 +75,72 @@ def epoch(xs: torch.Tensor):
         xs, FS, n_fft=N_FFT, mode="flexible", refine=True, lowlat="never")
 
 
-def profile(corpora: dict[str, np.ndarray], card: str) -> None:
+def profile_call(label: str, fn, card: str, walls: int = 20, runs: int = 3) -> None:
+    """Host wall per call of ``fn`` (mean of ``walls`` unprofiled calls,
+    synchronized, after two warm-up calls), then ``torch.profiler`` over
+    ``runs`` calls: device busy time, kernels per call, idle share (1 -
+    busy / wall) and the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(walls):
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / walls * 1e3
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    per_kernel = collections.defaultdict(float)
+    n_kernels = 0
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            per_kernel[evt.name] += evt.device_time / 1e3 / runs
+            n_kernels += 1
+    busy_ms = sum(per_kernel.values())
+    log(f"[profile] {label}: host wall {wall_ms:.4f} ms/call (mean of {walls}, unprofiled); "
+        f"device busy {busy_ms:.4f} ms/call over {n_kernels // runs} kernels "
+        f"(profiled) = idle share {1 - busy_ms / wall_ms:.3f}; {card}")
+    for kname, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[profile]   {ms:.4f} ms  {kname[:100]}")
+
+
+def profile(corpora: dict[str, np.ndarray], card: str) -> None:
     pipeline.reset_dynamic_state()
     for name, x in corpora.items():
         xs = torch.from_numpy(x).cuda()
-        for _ in range(2):
-            epoch(xs)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(20):
-            epoch(xs)
-            torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / 20 * 1e3
-        runs = 3
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(runs):
-                epoch(xs)
-            torch.cuda.synchronize()
-        per_kernel = collections.defaultdict(float)
-        n_kernels = 0
-        for evt in prof.events():
-            if evt.device_type == DeviceType.CUDA:
-                per_kernel[evt.name] += evt.device_time / 1e3 / runs
-                n_kernels += 1
-        busy_ms = sum(per_kernel.values())
-        log(f"[profile] {name}: host wall {wall_ms:.4f} ms/epoch (mean of 20, unprofiled); "
-            f"device busy {busy_ms:.4f} ms/epoch over {n_kernels // runs} kernels "
-            f"(profiled) = idle share {1 - busy_ms / wall_ms:.3f}; "
-            f"stats {pipeline.last_dynamic_stats()}; {card}")
-        for kname, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
-            log(f"[profile]   {ms:.4f} ms  {kname[:100]}")
+        profile_call(f"{name} epoch", lambda: epoch(xs), card)
+        log(f"[profile] {name}: stats {pipeline.last_dynamic_stats()}")
+
+
+def profile_paths(card: str) -> None:
+    """The gateway paths of ``chip_smoke.py`` phases 14-16 at their sizes,
+    inputs from host memory and results back to it, as a gateway calls
+    them."""
+    signals = chip_smoke._load_module("apda_signals", "signals.py")
+    recs = chip_smoke.gateway_records(signals)
+    welch = chip_smoke.gateway_welch_records()
+    stream = chip_smoke.stream_records(signals)
+    pipeline.reset_dynamic_state()
+    pipe = pipeline.SpectralPipeline(pipeline.PipelineConfig(mode="flexible", refine=True))
+    profile_call(f"analyze_records flexible refine, {len(recs)} records",
+                 lambda: batching.analyze_records(recs, analyze=pipe), card, walls=5)
+    for backend in ("matmul", "pallas"):
+        wp = pipeline.SpectralPipeline(pipeline.PipelineConfig(refine=True, backend=backend))
+        profile_call(f"analyze_records_welch {backend}, {len(welch)} records",
+                     lambda: batching.analyze_records_welch(
+                         welch, window=chip_smoke.WELCH_WINDOW, analyze=wp.welch), card, walls=5)
+    for backend in ("matmul", "pallas"):
+        profile_call(f"analyze_stream cfg4 hop 4096 {backend}, 1984 windows",
+                     lambda: streaming.analyze_stream(
+                         stream, FS, chip_smoke.STREAM_WINDOW, chip_smoke.STREAM_WINDOW // 2,
+                         refine=True, backend=backend), card, walls=5)
+    pipeline.reset_dynamic_state()
 
 
 def finalize_forms(noisy: np.ndarray, card: str) -> None:
@@ -311,6 +349,8 @@ def main() -> int:
     parser.add_argument("--skip-cpu-probe", action="store_true")
     parser.add_argument("--block-sizes", action="store_true",
                         help="only time the kernels' block sizes (item 4)")
+    parser.add_argument("--paths", action="store_true",
+                        help="only profile the gateway's record, Welch and stream paths (item 6)")
     parser.add_argument("--sass", metavar="OTHER_TREE",
                         help="only compare the kernels' compiled code with another "
                              "checkout's (item 5)")
@@ -328,6 +368,10 @@ def main() -> int:
     card = chip_smoke.phase_device()
     if args.sass:
         sass_compare(args.sass, card)
+        log(card)
+        return 0
+    if args.paths:
+        profile_paths(card)
         log(card)
         return 0
     corpora = {"clean": chip_smoke.clean_batch(BATCH), "noisy": chip_smoke.noisy_batch(BATCH)}

@@ -96,7 +96,51 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``backend="matmul"``, interleaved, on both corpora; the scans kernel and
    its plain twin at B=2048, H=2048, M=32, and the scans kernel's call and
    profiler device time at M in {2, 12, 32, 128};
-14. one JSON line describing the five kernels, each with its bound (the
+
+Phases 14-18 drive the record, Welch, stream, cross-spectra and pipelined
+paths at the gateway's scale.  Each sets every launch count to 0 just
+before it and reads them just after, taps every select+scan, latency and
+front-end kernel call it makes and holds each against the plain twin on its
+own inputs, and holds decisions against the port's CPU run (one intra-op
+thread) and the float64 oracle:
+
+14. records: ``analyze_records`` through a ``SpectralPipeline`` on one
+   gateway epoch at ``benchmarks/scale_soak.py``'s size (256 sensors x 3
+   axes x 2 rates): 768 records at fs=500 of 2500..4096 samples (the 4096
+   bucket, 1024 rows with the pow2 pad), 768 at fs=1000 of 5000..8192 (the
+   8192 bucket) and one 2048-sample record at 99.7 Hz (a bucket of one,
+   still the batched path: no latency kernel may launch); flexible with
+   refine, adaptive and rigid (the 99.7 Hz bucket takes the host
+   wipe-rounding table); 64 records against the CPU run, 33 against the
+   oracle; at a static budget each bucket makes at most two device-to-host
+   copies (``torch.profiler`` memcpy events, one window per bucket; the
+   default budgets' counts are printed); records/s;
+15. Welch: ``analyze_records_welch(..., analyze=pipeline.welch)`` at the
+   gateway's defaults (window 1024, hop 512, hann) on 768 records of 16384
+   samples at fs=500 and 768 of 32768 at fs=1000 (31 and 63 segments a
+   record), ``backend="matmul"`` and ``"pallas"``; 64 records against the
+   CPU run, 32 against a float64 Welch model under the oracle detector;
+   segments/s;
+16. streams at BASELINE config 4 (``[64, 131072]``, N=8192):
+   ``analyze_stream`` at hop 8192 (1024 windows) and 4096 (1984 windows),
+   both front ends; ``spectrogram`` (``backend="pallas"``) and
+   ``welch_psd`` (both) on the same records; 4 channels against the CPU
+   run, 32 windows against the oracle, ``welch_psd`` within rtol 2e-2 of
+   ``scipy.signal.welch``; windows/s;
+17. cross spectra: ``coherence_with_phase`` and ``cross_psd`` on 32 sensor
+   pairs ``[32, 131072]`` at window 4096: the shared mode coherent at
+   -45 degrees in every pair; 2 pairs against the CPU run and within the
+   JAX tests' tolerances of ``scipy.signal.csd`` / ``coherence``;
+18. pipelined: ``analyze_epochs_pipelined`` on 16 noisy [2048, 4096]
+   epochs at depth 1 and 4, and on 64 single-window epochs at depth 4 (cfg2
+   windows, flexible: the flexible latency kernel; cfg1 windows, rigid: the
+   rigid one); decisions equal sequential ``analyze_epoch``; every depth-4
+   dispatch, and the placement of an epoch and of one window, run with
+   the card's synchronisation debug mode at "error"; depth 4 against
+   depth 1 in windows/s, interleaved; placing host arrays of 16 KiB to
+   32 MiB on the card, pinned against pageable, also behind queued card
+   work;
+19. one JSON line describing the five kernels, each with its bound (the
    larger of its bytes over 3.35 TB/s and its float32 operations over
    67 TFLOP/s, computed from the shapes timed) and the time of one
    PyTorch call computing the same function where there is one, the card
@@ -109,6 +153,7 @@ package (the oracle in ``tests/oracle.py`` is plain numpy).
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import importlib.util
 import json
 import os
@@ -121,7 +166,7 @@ import time
 import numpy as np
 import torch
 
-from apda_fft_tpu_torch.models import pipeline
+from apda_fft_tpu_torch.models import batching, pipeline, streaming
 from apda_fft_tpu_torch.ops import detector_cuda, fft_cuda, latency_cuda
 from apda_fft_tpu_torch.ops.detector_cuda import (
     _prominence_scans_plain,
@@ -440,10 +485,17 @@ def _cpu_reference(*args, **kwargs):
     probes it there, and ``tests/test_torch_fft.py`` checks it wherever the
     tests run.  One thread keeps this reference out of that fault.
     """
+    with _one_cpu_thread():
+        return pipeline.analyze_epoch(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def _one_cpu_thread():
+    """One intra-op thread for a CPU reference run (see ``_cpu_reference``)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        return pipeline.analyze_epoch(*args, **kwargs)
+        yield
     finally:
         torch.set_num_threads(threads)
 
@@ -886,9 +938,9 @@ def phase_route(oracle, signals) -> tuple[dict[str, int], float]:
     return launches, worst
 
 
-def _wall_ms(fn, runs: int = WALL_RUNS) -> float:
+def _wall_ms(fn, runs: int = WALL_RUNS, warmup: int = 3) -> float:
     """Median host wall time of ``fn()`` followed by a synchronize, in ms."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -1338,8 +1390,626 @@ def phase_new_times(corpora: dict[str, np.ndarray], card: str) -> dict[str, dict
     return out
 
 
+# ---------------------------------------------------------------- records, streams, Welch
+
+#: Records per output data rate of the gateway at ``benchmarks/scale_soak.py``'s
+#: size: 256 sensors x 3 axes, at each of 2 rates.
+GATEWAY_RECORDS = 768
+#: The gateway's default Welch segment (``gateway/config.py``: window 1024,
+#: hop 0 = 50 %, hann).
+WELCH_WINDOW = 1024
+#: BASELINE config 4: 64 channels, 16 windows of N=8192 a channel.
+STREAM_CHANNELS, STREAM_WINDOW, STREAM_T = 64, 8192, 131072
+DECISIONS = ("count", "idx", "n_candidates", "n_required")
+
+
+def _zero_counts() -> None:
+    detector_cuda.launches = 0
+    detector_cuda.scan_launches = 0
+    fft_cuda.launches = 0
+    for key in latency_cuda.launches:
+        latency_cuda.launches[key] = 0
+
+
+def _counts() -> dict[str, int]:
+    return {"prominence_select_scan": detector_cuda.launches,
+            "lowlat_flexible": latency_cuda.launches["lowlat_flexible"],
+            "lowlat_rigid": latency_cuda.launches["lowlat_rigid"],
+            "halfspec_fused": fft_cuda.launches,
+            "prominence_scans": detector_cuda.scan_launches}
+
+
+class _Taps:
+    """While active, records every call of the B1, B2/B3 and B4 wrappers
+    (the pipeline looks each up at call time), so that :meth:`check` can
+    hold each call against its plain twin on its own inputs."""
+
+    def __enter__(self):
+        self.b1, self.lowlat, self.b4 = [], [], []
+        self._saved = b1, lowlat, b4 = (detector_cuda.prominence_select_scan,
+                                        latency_cuda.analyze_window_lowlat,
+                                        fft_cuda.halfspec_magnitudes_fused)
+
+        def tap_b1(mags, m):
+            out = b1(mags, m)
+            self.b1.append((mags.clone(), m, tuple(o.clone() for o in out)))
+            return out
+
+        def tap_lowlat(x, fs, **kw):
+            out = lowlat(x, fs, **kw)
+            self.lowlat.append((x.clone(), fs.clone(), kw, type(out)(*(o.clone() for o in out))))
+            return out
+
+        def tap_b4(x):
+            out = b4(x)
+            self.b4.append((x.clone(), out.clone()))
+            return out
+
+        detector_cuda.prominence_select_scan = tap_b1
+        latency_cuda.analyze_window_lowlat = tap_lowlat
+        fft_cuda.halfspec_magnitudes_fused = tap_b4
+        return self
+
+    def __exit__(self, *exc):
+        (detector_cuda.prominence_select_scan, latency_cuda.analyze_window_lowlat,
+         fft_cuda.halfspec_magnitudes_fused) = self._saved
+
+    def check(self, tag: str) -> dict[str, float]:
+        """Every tapped call against its plain twin; returns the max abs
+        float difference per kernel and frees the taps."""
+        worst = {"prominence_select_scan": 0.0, "lowlat_flexible": 0.0, "lowlat_rigid": 0.0,
+                 "halfspec_fused": 0.0}
+        for i, (mags, m, got) in enumerate(self.b1):
+            err = _kernel_equals_plain(mags, m, got,
+                                       f"{tag} select+scan call {i} {tuple(mags.shape)} M={m}")
+            worst["prominence_select_scan"] = max(worst["prominence_select_scan"], err)
+        for i, (x, fs, kw, got) in enumerate(self.lowlat):
+            mode = kw["mode"]
+            want = _lowlat_plain(x, fs, mode, kw["k"], kw["max_candidates"], kw["refine"])
+            worst[f"lowlat_{mode}"] = max(worst[f"lowlat_{mode}"], _lowlat_equals_plain(
+                got, want, mode, f"{tag} lowlat call {i} N={x.shape[-1]} {mode}"))
+        for i, (x, got) in enumerate(self.b4):
+            worst["halfspec_fused"] = max(worst["halfspec_fused"], _halfspec_call_check(
+                x, got, f"{tag} front-end call {i} {tuple(x.shape)}"))
+        log(f"[{tag}] every kernel call equal to its plain twin: select+scan {len(self.b1)}, "
+            f"latency {len(self.lowlat)}, front end {len(self.b4)} calls; max abs float diff "
+            f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} }")
+        self.b1, self.lowlat, self.b4 = [], [], []
+        return worst
+
+
+def _halfspec_call_check(x: torch.Tensor, got: torch.Tensor, case: str) -> float:
+    """A front-end call of up to 65536 windows against its plain twin: every
+    row on the card within 4e-6 of the twin's row maximum (the two differ by
+    up to 3e-6 of it on impulse windows, phase 10), DC 0; and every 64th
+    row by phase 10's element-wise checks against the twin and float64
+    numpy.fft.  Returns the max abs difference from the twin."""
+    twin = _halfspec_magnitudes_fused_plain(x)
+    diff = (got - twin).abs()
+    assert bool((diff <= 4e-6 * twin.amax(dim=-1, keepdim=True)).all()), (case, "vs twin")
+    assert not bool(got[:, 0].any()), f"{case}: DC bin not zero"
+    rows = torch.arange(0, x.shape[0], 64, device=x.device)
+    _halfspec_equals_plain(x[rows], got[rows], case)
+    return float(diff.max())
+
+
+def _max_err(*dicts: dict[str, float]) -> dict[str, float]:
+    out: dict[str, float] = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = max(out.get(k, 0.0), v)
+    return out
+
+
+def _assert_records_equal(got, want, where: str) -> None:
+    """Per-record views: bucket, row and count equal, every slot's index
+    equal, freq and mag to the 4-dp rounding step."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert (g.n_fft, g.count) == (w.n_fft, w.count), (where, i, g.count, w.count)
+        for s in range(g.count):
+            pg, pw = g.peak(s), w.peak(s)
+            assert pg["idx"] == pw["idx"], (where, i, s)
+            for f in ("freq", "mag"):
+                assert abs(pg[f] - pw[f]) <= 1e-4 + 1e-5 * abs(pw[f]), (where, i, s, f)
+        for f in ("n_candidates", "n_required"):
+            assert int(getattr(g.result, f)[g.row]) == int(getattr(w.result, f)[w.row]), \
+                (where, i, f)
+
+
+def _dtoh_copies(fn) -> int:
+    """Device-to-host copies the card ran during ``fn()`` (``torch.profiler``
+    memcpy events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == DeviceType.CUDA and "DtoH" in e.name)
+
+
+def gateway_records(signals) -> list[tuple[np.ndarray, float]]:
+    """One gateway epoch at scale: 768 records at fs=500 with lengths
+    2500..4096 (the 4096 bucket), 768 at fs=1000 with 5000..8192 (the 8192
+    bucket), each 1-4 damped modes with noise of std 0.05..0.5, and one
+    2048-sample record at the non-dyadic 99.7 Hz in a bucket of its own."""
+    rng = np.random.default_rng(2026)
+    recs = []
+    for fs, lo, hi in ((500.0, 2500, 4096), (1000.0, 5000, 8192)):
+        for n in rng.integers(lo, hi + 1, GATEWAY_RECORDS):
+            x = signals.modal_signal(int(n), fs, noise=float(rng.uniform(0.05, 0.5)),
+                                     seed=int(rng.integers(1 << 31)))
+            recs.append((x.astype(np.float32), fs))
+    recs.append((signals.modal_signal(2048, 99.7, seed=99).astype(np.float32), 99.7))
+    return recs
+
+
+def phase_records(oracle, signals, card: str) -> tuple[dict[str, int], dict[str, float]]:
+    """``analyze_records`` through a ``SpectralPipeline`` on one gateway
+    epoch (1537 records, three buckets) in flexible (refine), adaptive and
+    rigid mode.  Returns the path's kernel launches and the max abs float
+    difference of its kernel calls from their plain twins."""
+    recs = gateway_records(signals)
+    modes = {"flexible": dict(mode="flexible", refine=True), "adaptive": dict(mode="adaptive"),
+             "rigid": dict(mode="rigid")}
+    results, buckets = {}, []
+    _zero_counts()
+    with _Taps() as taps:
+        for name, kw in modes.items():
+            pipeline.reset_dynamic_state()
+            pipe = pipeline.SpectralPipeline(pipeline.PipelineConfig(**kw))
+            results[name] = batching.analyze_records(
+                recs, analyze=pipe, on_bucket=lambda n, idxs: buckets.append((n, len(idxs))))
+            log(f"[14 records] {name}: buckets (n_fft, records) {buckets[-3:]}; "
+                f"count>0 in {sum(rp.count > 0 for rp in results[name])}/{len(recs)} records; "
+                f"{pipe.last_metrics}")
+    launches = _counts()
+    log(f"[14 records] kernel launches on the records path: {launches}")
+    assert buckets[:3] == [(2048, 1), (4096, GATEWAY_RECORDS), (8192, GATEWAY_RECORDS)], buckets
+    assert launches["prominence_select_scan"] > 0, "the records path never launched B1"
+    # Every bucket passes its lengths, so even the one-record bucket takes
+    # the batched path, as in the JAX package.
+    assert launches["lowlat_flexible"] == launches["lowlat_rigid"] == 0, launches
+    err = taps.check("14 records")
+
+    sub = list(range(32)) + list(range(GATEWAY_RECORDS, GATEWAY_RECORDS + 31)) + [len(recs) - 1]
+    picks = (list(range(0, GATEWAY_RECORDS, 50))
+             + list(range(GATEWAY_RECORDS, 2 * GATEWAY_RECORDS, 51)) + [len(recs) - 1])
+    for name, kw in modes.items():
+        res = results[name]
+        assert all(t.device.type == "cpu" for t in res[0].result), "a view left on the card"
+        cpu_pipe = pipeline.SpectralPipeline(pipeline.PipelineConfig(device="cpu", **kw))
+        with _one_cpu_thread():
+            cpu = batching.analyze_records([recs[i] for i in sub], analyze=cpu_pipe)
+        _assert_records_equal([res[i] for i in sub], cpu, f"records {name} vs CPU")
+        for i in picks:
+            samples, fs = recs[i]
+            want = [p["idx"] for p in oracle.oracle_analyze(samples.astype(np.float64), fs, name)]
+            got = [res[i].peak(s)["idx"] for s in range(res[i].count)]
+            assert got == want, (name, i, got, want)
+        log(f"[14 records] {name}: {len(sub)} records equal to the CPU run, {len(picks)} "
+            f"(the 99.7 Hz one among them) to the float64 oracle")
+
+    # Copies per bucket: one profiler window per bucket, around a call on
+    # that bucket's records alone, after a warm-up call on them.
+    groups: dict[int, list] = {}
+    for rec in recs:
+        groups.setdefault(1 << (len(rec[0]) - 1).bit_length(), []).append(rec)
+    copies = {}
+    for label, kw in (("flexible, static budget 32", dict(mode="flexible", max_candidates=32)),
+                      *((f"{name}, default budget", kw) for name, kw in modes.items())):
+        pipeline.reset_dynamic_state()
+        pipe = pipeline.SpectralPipeline(pipeline.PipelineConfig(**kw))
+        copies[label] = {}
+        for n_fft, group in sorted(groups.items()):
+            batching.analyze_records(group, analyze=pipe)
+            copies[label][n_fft] = _dtoh_copies(
+                lambda: batching.analyze_records(group, analyze=pipe))
+        log(f"[14 records] device-to-host copies per bucket {{n_fft: copies}}, {label}: "
+            f"{copies[label]} (torch.profiler memcpy events)")
+    assert all(0 < c <= 2 for c in copies["flexible, static budget 32"].values()), copies
+    for name, kw in modes.items():
+        pipe = pipeline.SpectralPipeline(pipeline.PipelineConfig(**kw))
+        sec = _wall_ms(lambda: batching.analyze_records(recs, analyze=pipe), runs=3,
+                       warmup=1) / 1e3
+        log(f"[14 times] analyze_records {name}: {len(recs) / sec:.1f} records/s ({sec * 1e3:.2f} "
+            f"ms for {len(recs)} records in 3 buckets, host wall incl. the copies, median of 3; "
+            f"{card})")
+    pipeline.reset_dynamic_state()
+    return launches, err
+
+
+def gateway_welch_records() -> list[tuple[np.ndarray, float]]:
+    """The gateway's Welch inputs at scale: 768 records of 16384 samples at
+    fs=500 and 768 of 32768 at fs=1000 (31 and 63 segments of 1024), each
+    unit broadband noise plus two weak tones (amplitude 0.15..0.5)."""
+    rng = np.random.default_rng(2027)
+    recs = []
+    for fs, n in ((500.0, 16384), (1000.0, 32768)):
+        t = np.arange(n) / fs
+        x = rng.standard_normal((GATEWAY_RECORDS, n))
+        for _ in range(2):
+            f = rng.uniform(0.05, 0.45, (GATEWAY_RECORDS, 1)) * fs
+            a = rng.uniform(0.15, 0.5, (GATEWAY_RECORDS, 1))
+            x += a * np.sin(2 * np.pi * f * t + rng.uniform(0, 2 * np.pi, (GATEWAY_RECORDS, 1)))
+        recs += [(row, fs) for row in x.astype(np.float32)]
+    return recs
+
+
+def _spec_from_mags(mags: np.ndarray) -> np.ndarray:
+    """A length-2H complex vector whose |.| over the first half is ``mags``
+    (the float64 oracle detectors take a spectrum)."""
+    full = np.zeros(2 * len(mags), dtype=np.complex128)
+    full[: len(mags)] = mags
+    return full
+
+
+def oracle_welch_mags(x: np.ndarray, window: int, hop: int) -> np.ndarray:
+    """Float64 model of ``analyze_welch``'s spectrum (``tests/test_welch_oracle.py``,
+    restated here without its JAX imports): frame, mean-detrend, pad,
+    normalized hann over the data, |rfft| with DC zeroed, RMS over segments."""
+    x = np.asarray(x, np.float64)
+    w = (len(x) - window) // hop + 1
+    n_fft = 1 << (window - 1).bit_length()
+    segs = np.stack([x[s * hop: s * hop + window] for s in range(w)])
+    segs = segs - segs.mean(axis=1, keepdims=True)
+    segs = np.pad(segs, ((0, 0), (0, n_fft - window)))
+    i = np.arange(n_fft, dtype=np.float64)
+    win = 0.5 - 0.5 * np.cos(2.0 * np.pi * i / max(window - 1.0, 1.0))
+    win[window:] = 0.0
+    segs = segs * (win / win.mean())
+    mags = np.abs(np.fft.rfft(segs))[:, : n_fft // 2]
+    mags[:, 0] = 0.0
+    return np.sqrt(np.mean(mags * mags, axis=0))
+
+
+def phase_welch(oracle, card: str) -> tuple[dict[str, int], dict[str, float]]:
+    """``analyze_records_welch(..., analyze=pipeline.welch)`` at the
+    gateway's Welch defaults on 1536 long records, with ``backend="matmul"``
+    and ``"pallas"``.  Returns launches and max abs float differences."""
+    recs = gateway_welch_records()
+    segments = GATEWAY_RECORDS * (31 + 63)
+    results, buckets = {}, []
+    pipes = {b: pipeline.SpectralPipeline(pipeline.PipelineConfig(refine=True, backend=b))
+             for b in ("matmul", "pallas")}
+    _zero_counts()
+    with _Taps() as taps:
+        for backend, pipe in pipes.items():
+            results[backend] = batching.analyze_records_welch(
+                recs, window=WELCH_WINDOW, analyze=pipe.welch,
+                on_bucket=lambda n, idxs: buckets.append((n, len(idxs))))
+            log(f"[15 welch] backend={backend}: count>0 in "
+                f"{sum(rp.count > 0 for rp in results[backend])}/{len(recs)} records")
+    launches = _counts()
+    log(f"[15 welch] kernel launches on the Welch path: {launches}")
+    assert buckets == [(WELCH_WINDOW, GATEWAY_RECORDS)] * 4, buckets
+    assert launches["prominence_select_scan"] > 0 and launches["halfspec_fused"] > 0, launches
+    err = taps.check("15 welch")
+
+    sub = list(range(32)) + list(range(GATEWAY_RECORDS, GATEWAY_RECORDS + 32))
+    picks = (list(range(0, GATEWAY_RECORDS, 48))
+             + list(range(GATEWAY_RECORDS, 2 * GATEWAY_RECORDS, 48)))
+    want = {i: [p["idx"] for p in oracle.oracle_prominence_peaks(
+        _spec_from_mags(oracle_welch_mags(recs[i][0], WELCH_WINDOW, WELCH_WINDOW // 2)),
+        recs[i][1])] for i in picks}
+    for backend, res in results.items():
+        assert all(rp.count > 0 for rp in res), "a Welch record without a peak"
+        cpu_pipe = pipeline.SpectralPipeline(pipeline.PipelineConfig(refine=True, backend=backend,
+                                                                     device="cpu"))
+        with _one_cpu_thread():
+            cpu = batching.analyze_records_welch([recs[i] for i in sub], window=WELCH_WINDOW,
+                                                 analyze=cpu_pipe.welch)
+        _assert_records_equal([res[i] for i in sub], cpu, f"welch {backend} vs CPU")
+        for i in picks:
+            got = [res[i].peak(s)["idx"] for s in range(res[i].count)]
+            assert got == want[i], (backend, i, got, want[i])
+        log(f"[15 welch] backend={backend}: {len(sub)} records equal to the CPU run, "
+            f"{len(picks)} to the float64 Welch model under the float64 oracle detector")
+    for backend, pipe in pipes.items():
+        sec = _wall_ms(lambda: batching.analyze_records_welch(
+            recs, window=WELCH_WINDOW, analyze=pipe.welch), runs=3, warmup=1) / 1e3
+        log(f"[15 times] analyze_records_welch backend={backend}: {segments / sec:.1f} "
+            f"segments/s, {len(recs) / sec:.1f} records/s ({sec * 1e3:.2f} ms a call, host wall "
+            f"incl. the copies, median of 3; {card})")
+    return launches, err
+
+
+def stream_records(signals) -> np.ndarray:
+    """BASELINE config 4's stream, ``[64, 131072]`` float32 at fs=500: each
+    channel 16 consecutive N=8192 stretches of 1-4 damped modes (re-excited
+    every stretch) with noise of std 0.05..0.5."""
+    rng = np.random.default_rng(2028)
+    rows = [np.concatenate([signals.modal_signal(STREAM_WINDOW, FS,
+                                                 noise=float(rng.uniform(0.05, 0.5)),
+                                                 seed=int(rng.integers(1 << 31)))
+                            for _ in range(STREAM_T // STREAM_WINDOW)])
+            for _ in range(STREAM_CHANNELS)]
+    return np.stack(rows).astype(np.float32)
+
+
+def phase_streams(oracle, signals, card: str) -> tuple[dict[str, int], dict[str, float]]:
+    """``analyze_stream`` on BASELINE cfg4 at hop 8192 (1024 windows) and
+    4096 (1984 windows) with both front ends, then ``spectrogram`` and
+    ``welch_psd`` on the same records.  Returns launches and errors."""
+    import scipy.signal
+
+    x = stream_records(signals)
+    runs = [(hop, backend) for hop in (STREAM_WINDOW, STREAM_WINDOW // 2)
+            for backend in ("matmul", "pallas")]
+    results = {}
+    pipeline.reset_dynamic_state()
+    _zero_counts()
+    with _Taps() as taps:
+        for hop, backend in runs:
+            results[hop, backend] = streaming.analyze_stream(
+                x, FS, STREAM_WINDOW, hop, mode="flexible", refine=True, backend=backend)
+            res = results[hop, backend]
+            log(f"[16 streams] hop={hop} backend={backend}: windows {tuple(res.count.shape)}; "
+                f"count>0 in {int((res.count > 0).sum())}; {dict(pipeline.last_dynamic_stats())}")
+        freqs, mags = streaming.spectrogram(x, FS, STREAM_WINDOW, backend="pallas")
+        psd = {b: streaming.welch_psd(x, FS, WELCH_WINDOW, backend=b)[1]
+               for b in ("matmul", "pallas")}
+        torch.cuda.synchronize()
+    launches = _counts()
+    log(f"[16 streams] kernel launches on the stream paths: {launches}")
+    assert launches["prominence_select_scan"] > 0 and launches["halfspec_fused"] > 0, launches
+    err = taps.check("16 streams")
+
+    w = STREAM_T // STREAM_WINDOW
+    assert results[STREAM_WINDOW, "matmul"].count.shape == (STREAM_CHANNELS, w)
+    assert results[STREAM_WINDOW // 2, "matmul"].count.shape == (STREAM_CHANNELS, 2 * w - 1)
+    for (hop, backend), res in results.items():
+        assert bool(torch.isfinite(res.freq).all())
+        with _one_cpu_thread():
+            cpu = streaming.analyze_stream(x[:4], FS, STREAM_WINDOW, hop, mode="flexible",
+                                           refine=True, backend=backend, device="cpu")
+        gpu = type(res)(*(f[:4] for f in res))
+        _assert_same(gpu, cpu, DECISIONS, (("freq", 1e-4, 1e-6), ("mag", 1e-4, 1e-6)),
+                     f"stream hop={hop} {backend} vs CPU")
+        if hop == STREAM_WINDOW:
+            for ch in range(2):
+                for i in range(w):
+                    seg = x[ch, i * STREAM_WINDOW:(i + 1) * STREAM_WINDOW].astype(np.float64)
+                    want = [p["idx"] for p in oracle.oracle_analyze(seg, FS, "flexible")]
+                    c = int(res.count[ch, i])
+                    assert res.idx[ch, i, :c].tolist() == want, (backend, ch, i)
+        log(f"[16 streams] hop={hop} {backend}: 4 channels equal to the CPU run"
+            + (f"; {2 * w} windows to the float64 oracle" if hop == STREAM_WINDOW else ""))
+
+    assert mags.shape == (STREAM_CHANNELS, w, STREAM_WINDOW // 2) and freqs.shape == (4096,)
+    with _one_cpu_thread():
+        _, cpu_mags = streaming.spectrogram(x[:4], FS, STREAM_WINDOW, backend="pallas",
+                                            device="cpu")
+    scale = cpu_mags.amax(dim=-1, keepdim=True)
+    assert bool(((mags[:4].cpu() - cpu_mags).abs() <= 4e-6 * scale).all()), "spectrogram vs CPU"
+    h = WELCH_WINDOW // 2
+    for backend, p in psd.items():
+        assert p.shape == (STREAM_CHANNELS, h) and float(p[:, 0].abs().max()) == 0.0
+        for ch in range(4):
+            _, p_sp = scipy.signal.welch(x[ch].astype(np.float64), fs=FS,
+                                         window=np.hanning(WELCH_WINDOW), nperseg=WELCH_WINDOW,
+                                         noverlap=WELCH_WINDOW // 2, detrend="constant")
+            np.testing.assert_allclose(p[ch, 1:h].cpu().numpy(), p_sp[1:h], rtol=2e-2)
+    log(f"[16 streams] spectrogram [64, {w}, 4096] (backend='pallas') within 4e-6 of the row "
+        f"maximum of the CPU run on 4 channels; welch_psd (both backends) within rtol 2e-2 of "
+        f"scipy.signal.welch on 4 channels")
+
+    for hop, backend in runs:
+        sec = _wall_ms(lambda: streaming.analyze_stream(
+            x, FS, STREAM_WINDOW, hop, mode="flexible", refine=True, backend=backend),
+            runs=3, warmup=1) / 1e3
+        n_win = results[hop, backend].count.numel()
+        log(f"[16 times] analyze_stream hop={hop} backend={backend}: {n_win / sec:.1f} "
+            f"windows/s ({sec * 1e3:.2f} ms for {n_win} windows from host memory, host wall, "
+            f"median of 3; {card})")
+    pipeline.reset_dynamic_state()
+    return launches, err
+
+
+def phase_cross_spectra(card: str) -> dict[str, int]:
+    """``coherence_with_phase`` and ``cross_psd`` on 32 sensor pairs
+    ``[32, 131072]`` at window 4096, against the CPU run and scipy.
+    Returns the kernel launches (none: the complex front end is the
+    four-step's ``torch.matmul`` calls)."""
+    import scipy.signal
+
+    rng = np.random.default_rng(2029)
+    t = np.arange(STREAM_T) / FS
+    f = rng.uniform(5.0, 200.0, (32, 1))
+    x = (np.sin(2 * np.pi * f * t) + 0.5 * rng.standard_normal((32, STREAM_T))).astype(np.float32)
+    y = (0.7 * np.sin(2 * np.pi * f * t - np.pi / 4)
+         + 0.5 * rng.standard_normal((32, STREAM_T))).astype(np.float32)
+    window, h = 4096, 2048
+    _zero_counts()
+    freqs, cxy, phase = streaming.coherence_with_phase(x, y, FS, window)
+    fx, pxy = streaming.cross_psd(x, y, FS, window)
+    torch.cuda.synchronize()
+    launches = _counts()
+    assert cxy.shape == phase.shape == (32, h) and pxy.shape == (32, h) and np.iscomplexobj(pxy)
+    assert pxy.dtype == np.complex64 or pxy.dtype == np.complex128
+    tone = np.rint(f[:, 0] * window / FS).astype(int)
+    rows = np.arange(32)
+    assert bool((cxy[rows, tone] > 0.95).all()), cxy[rows, tone]
+    assert bool(((phase[rows, tone] + 45.0).abs() < 5.0).all()), phase[rows, tone]
+    with _one_cpu_thread():
+        _, c_cpu, ph_cpu = streaming.coherence_with_phase(x[:2], y[:2], FS, window, device="cpu")
+        _, p_cpu = streaming.cross_psd(x[:2], y[:2], FS, window, device="cpu")
+    np.testing.assert_allclose(cxy[:2].cpu().numpy(), c_cpu.numpy(), atol=1e-5)
+    np.testing.assert_allclose(phase[rows[:2], tone[:2]].cpu().numpy(),
+                               ph_cpu[rows[:2], tone[:2]].numpy(), atol=1e-3)
+    np.testing.assert_allclose(pxy[:2], p_cpu, rtol=1e-5, atol=1e-6 * np.abs(p_cpu).max())
+    for i in range(2):
+        x64, y64 = x[i].astype(np.float64), y[i].astype(np.float64)
+        kw = dict(fs=FS, window=np.hanning(window), nperseg=window, noverlap=window // 2,
+                  detrend="constant")
+        _, p_sp = scipy.signal.csd(x64, y64, **kw)
+        _, c_sp = scipy.signal.coherence(x64, y64, **kw)
+        b = tone[i]
+        assert abs(abs(pxy[i, b]) - abs(p_sp[b])) <= 0.02 * abs(p_sp[b]), (i, pxy[i, b], p_sp[b])
+        assert abs(np.angle(pxy[i, b]) - np.angle(p_sp[b])) <= 0.02, (i, pxy[i, b], p_sp[b])
+        sm = lambda a: np.convolve(np.abs(a), np.ones(32) / 32, mode="valid")  # noqa: E731
+        np.testing.assert_allclose(sm(pxy[i, 1:h]), sm(p_sp[1:h]), rtol=0.1)
+        np.testing.assert_allclose(cxy[i, 1:h].cpu().numpy(), c_sp[1:h], atol=0.02)
+    log(f"[17 cross spectra] 32 pairs [32, {STREAM_T}] window {window}: coherence > 0.95 and "
+        f"phase -45 +- 5 degrees at every shared mode; 2 pairs equal to the CPU run and within "
+        f"the JAX tests' tolerances of scipy.signal.csd / coherence; kernel launches {launches}")
+    segs = 2 * 32 * ((STREAM_T - window) // (window // 2) + 1)
+    sec = _wall_ms(lambda: streaming.coherence_with_phase(x, y, FS, window), runs=3,
+                   warmup=1) / 1e3
+    log(f"[17 times] coherence_with_phase: {segs / sec:.1f} segments/s ({sec * 1e3:.2f} ms for "
+        f"{segs} segments of {window} from host memory, host wall, median of 3; {card})")
+    return launches
+
+
+@contextlib.contextmanager
+def _no_sync():
+    """Fail on any operation that makes the host wait for the card."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def phase_pipelined(corpora: dict[str, np.ndarray], oracle,
+                    card: str) -> tuple[dict[str, int], dict[str, float]]:
+    """``analyze_epochs_pipelined``: 16 noisy [2048, 4096] epochs at depth 1
+    and 4, and 64 single-window epochs at depth 4 of cfg2 windows (N=4096,
+    flexible, refine) and cfg1 windows (N=1024, rigid), against sequential
+    ``analyze_epoch``; every dispatch in the depth-4 runs goes through
+    ``analyze_epoch`` with the card's synchronisation debug mode set to
+    "error".  Returns launches and errors."""
+    rng = np.random.default_rng(2030)
+    base = corpora["noisy"]
+    epochs = [base[rng.permutation(BATCH)]
+              + (0.05 * rng.standard_normal(base.shape)).astype(np.float32) for _ in range(16)]
+    # BASELINE cfg2 and cfg1 windows (the two tones of bench.py), 64 noise draws each.
+    singles = {"flexible": list(clean_batch(64, N_FFT)[:, None]),
+               "rigid": list(clean_batch(64, 1024)[:, None])}
+    kws = {"flexible": dict(refine=True), "rigid": dict()}
+
+    def sequential(eps, mode, **kw):
+        pipeline.reset_dynamic_state()
+        return [pipeline.analyze_epoch(e, FS, mode=mode, **kw) for e in eps]
+
+    def unsynced(samples, fs, **kw):
+        with _no_sync():
+            return pipeline.analyze_epoch(samples, fs, **kw)
+
+    seq = sequential(epochs, "flexible", refine=True)
+    seq_single = {m: sequential(eps, m, **kws[m]) for m, eps in singles.items()}
+    out = {}
+    _zero_counts()
+    with _Taps() as taps:
+        for depth in (1, 4):
+            pipeline.reset_dynamic_state()
+            out[depth] = list(streaming.analyze_epochs_pipelined(
+                epochs, FS, depth=depth, refine=True, analyze=unsynced if depth == 4 else
+                pipeline.analyze_epoch))
+            log(f"[18 pipelined] 16 noisy epochs at depth {depth}: dynamic_state "
+                f"{pipeline.dynamic_state()['budget']}")
+        out_single = {}
+        for mode, eps in singles.items():
+            pipeline.reset_dynamic_state()
+            out_single[mode] = list(streaming.analyze_epochs_pipelined(
+                eps, FS, depth=4, mode=mode, analyze=unsynced, **kws[mode]))
+        torch.cuda.synchronize()
+    launches = _counts()
+    log(f"[18 pipelined] kernel launches on the pipelined paths: {launches}")
+    for key in ("prominence_select_scan", "lowlat_flexible", "lowlat_rigid"):
+        assert launches[key] > 0, (key, launches)
+    err = taps.check("18 pipelined")
+    for a in (epochs[0], singles["flexible"][0]):  # pinned, and pageable (small)
+        with _no_sync():
+            placed = pipeline._placed(a, None, torch.float32)
+        assert torch.equal(placed.cpu(), torch.from_numpy(a))
+
+    exact = DECISIONS + ("freq", "mag", "prominence", "damping", "q_factor", "refined_freq")
+    for label, got_all, want_all in (
+            [(f"noisy depth {d}", out[d], seq) for d in (1, 4)]
+            + [(f"{m} single windows depth 4", out_single[m], seq_single[m]) for m in singles]):
+        assert len(got_all) == len(want_all)
+        for i, (got, want) in enumerate(zip(got_all, want_all)):
+            _assert_same(got, want, DECISIONS, [(f, 1e-4, 1e-5) for f in exact[4:]],
+                         f"pipelined {label} epoch {i} vs sequential")
+        log(f"[18 pipelined] {label}: every epoch's decisions equal sequential analyze_epoch")
+    for i in (0, 1):
+        cpu = _cpu_reference(torch.from_numpy(epochs[i]), FS, refine=True, lowlat="never",
+                             max_candidates=int(out[4][i].n_required.max()))
+        _assert_same(out[4][i], cpu, ("count", "idx"), (("freq", 1e-4, 1e-6), ("mag", 1e-4, 1e-5)),
+                     f"pipelined epoch {i} vs CPU")
+    for i in range(32):
+        want = [p["idx"] for p in oracle.oracle_analyze(epochs[0][i].astype(np.float64), FS,
+                                                        "flexible")]
+        c = int(out[4][0].count[i])
+        assert out[4][0].idx[i, :c].tolist() == want, i
+    log("[18 pipelined] epochs 0 and 1 equal to the CPU run, 32 windows of epoch 0 to the "
+        "float64 oracle; an epoch's placement and every depth-4 dispatch ran with no "
+        "synchronisation")
+
+    rates = {1: [], 4: []}
+    for depth in (1, 4, 4, 1):
+        sec = _wall_ms(lambda: list(streaming.analyze_epochs_pipelined(
+            epochs, FS, depth=depth, refine=True)), runs=3, warmup=1) / 1e3
+        rates[depth].append(len(epochs) * BATCH / sec)
+    single_rates = {1: [], 4: []}
+    for depth in (1, 4, 4, 1):
+        sec = _wall_ms(lambda: list(streaming.analyze_epochs_pipelined(
+            singles["flexible"], FS, depth=depth, refine=True)), runs=3, warmup=1) / 1e3
+        single_rates[depth].append(len(singles["flexible"]) / sec)
+    log(f"[18 times] pipelined 16 noisy epochs B={BATCH} N={N_FFT}, windows/s: depth 1 "
+        f"{' / '.join(f'{r:.1f}' for r in rates[1])}, depth 4 "
+        f"{' / '.join(f'{r:.1f}' for r in rates[4])}; 64 cfg2 single windows, windows/s: "
+        f"depth 1 {' / '.join(f'{r:.1f}' for r in single_rates[1])}, depth 4 "
+        f"{' / '.join(f'{r:.1f}' for r in single_rates[4])} (host wall, median of 3, "
+        f"1-4-4-1 order; {card})")
+    phase_placement(card)
+    pipeline.reset_dynamic_state()
+    return launches, err
+
+
+def phase_placement(card: str) -> None:
+    """How a host array reaches the card, by size: pinned then copied, or
+    copied from pageable memory, both ``non_blocking``, against
+    ``pipeline._from_host`` (pinned past ``_PAGEABLE_MAX_BYTES``).  Host wall
+    with a synchronize, interleaved; then the host time of each call while
+    the card is busy with ~10 ms of queued work, which shows whether the
+    call waits for the card."""
+    places = {
+        "pinned": lambda a: torch.as_tensor(a).pin_memory().to("cuda", non_blocking=True),
+        "pageable": lambda a: torch.as_tensor(a).to("cuda", non_blocking=True),
+        "_from_host": lambda a: pipeline._from_host(a, "cuda"),
+    }
+    rng = np.random.default_rng(2031)
+    for n in (4096, 1 << 16, 1 << 18, 1 << 19, 1 << 20, BATCH * N_FFT):
+        a = rng.standard_normal(n).astype(np.float32)
+        ms = {k: [] for k in places}
+        for k in ("pinned", "pageable", "_from_host", "_from_host", "pageable", "pinned"):
+            ms[k].append(_wall_ms(lambda: places[k](a), runs=20, warmup=2))
+        busy = {}
+        for k, place in places.items():
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                torch.cuda._sleep(20_000_000)
+                t0 = time.perf_counter()
+                out = place(a)
+                times.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+            assert torch.equal(out.cpu(), torch.from_numpy(a)), k
+            busy[k] = statistics.median(times)
+        log(f"[18 placement] {n * 4} bytes float32: "
+            + ", ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)} ms" for k, v in ms.items())
+            + " (host wall with synchronize, median of 20); host time of the call behind "
+            "~10 ms of queued card work: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in busy.items())
+            + f" (median of 5; {card})")
+
 
 def main() -> int:
+    t0 = time.perf_counter()
     card = phase_device()
     phase_build()
     corpora_err = phase_kernel_vs_plain()
@@ -1355,6 +2025,16 @@ def main() -> int:
     halfspec_launches, pallas_err = phase_pallas_path(corpora)
     scan_launches, scan_err = phase_scans_vs_plain(corpora)
     new_times = phase_new_times(corpora, card)
+    oracle, signals = _load_oracle(), _load_module("apda_signals", "signals.py")
+    paths = {"records": phase_records(oracle, signals, card),
+             "welch": phase_welch(oracle, card),
+             "streams": phase_streams(oracle, signals, card)}
+    phase_cross_spectra(card)
+    paths["pipelined"] = phase_pipelined(corpora, oracle, card)
+    log(f"[18 launches] by path: { {name: launches for name, (launches, _) in paths.items()} }")
+    path_launches = {key: sum(p[0][key] for p in paths.values()) for key in _counts()}
+    path_err = _max_err(*(err for _, err in paths.values()))
+    log(f"[18 elapsed] phases 1-18 in {time.perf_counter() - t0:.1f} s")
 
     h, m12 = N_FFT // 2, 12
     # Per kernel, at the shapes its time was taken at: (bytes of its inputs
@@ -1373,8 +2053,8 @@ def main() -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": launches,
-        "max_abs_err": max(corpora_err, main_err),
+        "launches": launches + path_launches["prominence_select_scan"],
+        "max_abs_err": max(corpora_err, main_err, path_err["prominence_select_scan"]),
         "ms": k_ms,
         "plain_ms": p_ms,
         "library_ms": None,
@@ -1385,8 +2065,8 @@ def main() -> int:
             "route": "cuda",
             "source": LOWLAT_SOURCE,
             "replaces": LOWLAT_REPLACES[name],
-            "launches": lowlat_launches[name],
-            "max_abs_err": max(lowlat_err[name], route_err),
+            "launches": lowlat_launches[name] + path_launches[name],
+            "max_abs_err": max(lowlat_err[name], route_err, path_err[name]),
             "ms": lowlat_times[name][0],
             "plain_ms": lowlat_times[name][1],
             "library_ms": None,
@@ -1396,8 +2076,8 @@ def main() -> int:
         "route": "cuda",
         "source": HALFSPEC_SOURCE,
         "replaces": HALFSPEC_REPLACES,
-        "launches": halfspec_launches,
-        "max_abs_err": max(halfspec_err, pallas_err),
+        "launches": halfspec_launches + path_launches["halfspec_fused"],
+        "max_abs_err": max(halfspec_err, pallas_err, path_err["halfspec_fused"]),
         **new_times["halfspec_fused"],
     })
     rows.append({
@@ -1405,7 +2085,7 @@ def main() -> int:
         "route": "cuda",
         "source": SCANS_SOURCE,
         "replaces": SCANS_REPLACES,
-        "launches": scan_launches,
+        "launches": scan_launches + path_launches["prominence_scans"],
         "max_abs_err": scan_err,
         **new_times["prominence_scans"],
     })

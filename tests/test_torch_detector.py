@@ -4,7 +4,7 @@ On a CPU tensor the select+scan wrapper runs its plain torch version; it is
 held here against the JAX package's fused Pallas kernel in interpret mode
 and its staged XLA path (integers exact, floats to rtol 1e-6 - the
 frameworks reduce in different orders).  The CUDA kernel itself needs the
-card: the ``gpu``-marked test below and ``chip_smoke.py`` phase 3 compare it
+card: ``test_torch_gpu_card.py`` and ``chip_smoke.py`` phase 3 compare it
 with the plain version there.
 """
 
@@ -182,15 +182,3 @@ def test_discard_count_matches_jax(freq_bins):
     want = int(jres._discard_count(jnp.float32(freq), jnp.float32(ds)))
     got = int(tres._discard_count(torch.tensor([freq]), torch.tensor([ds]))[0])
     assert got == want
-
-
-@pytest.mark.gpu
-def test_kernel_matches_plain_on_the_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; chip_smoke.py phase 3 runs this on the card")
-    for kind in ("modal", "noise", "flat", "ties"):
-        mags = torch.from_numpy(_spectra(64, 2048, seed=5, kind=kind)).cuda()
-        for m in (2, 12, 128):
-            got = detector_cuda.prominence_select_scan(mags, m)
-            want = detector_cuda._prominence_select_scan_plain(mags, m)
-            _assert_slots_equal([t.cpu() for t in got], [t.cpu() for t in want], kind)

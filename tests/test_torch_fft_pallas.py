@@ -6,8 +6,9 @@ twin; it is held here against the JAX package's Pallas kernel
 scale (the JAX package's own tolerance for its kernel), and <= 1e-6
 normwise against float64 ``numpy.fft`` (the spectrum contract).  Epochs with
 ``backend="pallas"`` are held against the JAX package's: decisions equal,
-values to the reference's rounding.  The CUDA kernel needs the card: the
-``gpu``-marked test and ``chip_smoke.py`` compare it with the twin there.
+values to the reference's rounding.  The CUDA kernel needs the card:
+``test_torch_gpu_card.py`` and ``chip_smoke.py`` compare it with the twin
+there.
 """
 
 import jax.numpy as jnp
@@ -148,19 +149,3 @@ def test_one_window_takes_the_batched_path(monkeypatch):
     want = tpipe.analyze_epoch(x, FS, backend="matmul", lowlat="never", refine=True,
                                device="cpu")
     _assert_epoch_equal(got, want)
-
-
-@pytest.mark.gpu
-def test_kernel_matches_plain_on_the_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; chip_smoke.py runs this on the card")
-    for n in (64, 1024, 4096, 65536):
-        x = torch.from_numpy(_windows(3, n, seed=n)).cuda()
-        got = fft_cuda.halfspec_magnitudes_fused(x).cpu().numpy()
-        want = fft_cuda._halfspec_magnitudes_fused_plain(x).cpu().numpy()
-        # The kernel sums each DFT sequentially, torch.matmul in blocks.
-        scale = want.max(axis=-1, keepdims=True)
-        np.testing.assert_allclose(got / scale, want / scale, atol=2e-6, rtol=0)
-        assert not got[:, 0].any()
-        ref = _float64_mags(x.cpu().numpy())
-        assert np.linalg.norm(got - ref) / np.linalg.norm(ref) <= 1e-6

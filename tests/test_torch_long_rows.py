@@ -15,7 +15,7 @@ here on the CPU:
   against the JAX package's and the float64 oracle (on the CPU the detector
   runs its plain twin).
 
-The ``gpu``-marked case runs the same epochs on the card against the CPU
+``test_torch_gpu_card.py`` runs the same epochs on the card against the CPU
 run; ``chip_smoke.py`` (phases 3, 5 and 12) covers the kernels there.
 """
 
@@ -150,22 +150,3 @@ def test_epoch_at_n_131072_matches_jax_and_oracle(mode):
     for i in range(2):
         ref = oracle_analyze(x[i].astype(np.float64), FS, mode)
         assert got.idx[i, :counts[i]].tolist() == [p["idx"] for p in ref], i
-
-
-@pytest.mark.gpu
-@pytest.mark.usefixtures("_fresh_dynamic_state")
-def test_epoch_at_n_131072_on_the_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; chip_smoke.py phase 5 runs this on the card")
-    x = _long_epoch()
-    for mode in ("flexible", "adaptive"):
-        before = detector_cuda.launches
-        gpu = tpipe.analyze_epoch(torch.from_numpy(x).cuda(), FS, mode=mode, refine=True,
-                                  lowlat="never")
-        assert detector_cuda.launches > before
-        budget = tpipe.last_dynamic_stats()["candidate_budget"]
-        cpu = tpipe.analyze_epoch(torch.from_numpy(x), FS, mode=mode, refine=True,
-                                  lowlat="never", max_candidates=budget)
-        for f in ("count", "idx", "n_candidates", "n_required"):
-            np.testing.assert_array_equal(getattr(gpu, f).cpu().numpy(),
-                                          getattr(cpu, f).numpy(), err_msg=f"{mode} {f}")

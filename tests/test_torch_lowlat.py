@@ -6,8 +6,8 @@ mode.  Decisions (``count``, ``idx``, ``n_candidates``, ``n_required``) are
 equal; ``freq``/``mag`` to one 4-dp rounding step (float32 can land on the
 other side of a tie), ``damping``/``q`` to one 2-dp step, ``refined_freq``
 within 1e-3 Hz, as the JAX package's own test holds its kernel to its
-batched path.  The CUDA kernels need the card: the ``gpu``-marked test and
-``chip_smoke.py`` compare them with the plain version there.
+batched path.  The CUDA kernels need the card: ``test_torch_gpu_card.py``
+and ``chip_smoke.py`` compare them with the plain version there.
 """
 
 import jax.numpy as jnp
@@ -128,19 +128,3 @@ def test_tables_bit_equal_to_jax(n):
         want = np.asarray(want)
         assert got.dtype == torch.float32 and got.shape == want.shape
         np.testing.assert_array_equal(got.numpy(), want)
-
-
-@pytest.mark.gpu
-def test_kernel_matches_plain_on_the_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; chip_smoke.py runs this on the card")
-    for kind in ("modal", "noise", "impulse", "flat"):
-        x = torch.from_numpy(_window(4096, 500.0, seed=5, kind=kind)).cuda()
-        fs = torch.tensor(500.0, device="cuda")
-        for mode, budget in (("rigid", 2), ("flexible", 2), ("flexible", 64)):
-            got = tlat.analyze_window_lowlat(x, fs, mode=mode, max_candidates=budget,
-                                             refine=True)
-            want = tlat._analyze_window_lowlat_plain(x, fs, n_fft=4096, mode=mode, k=got.k,
-                                                     budget=budget, refine=True)
-            _assert_same(type(got)(*(t.cpu() for t in got)),
-                         type(want)(*(t.cpu() for t in want)))

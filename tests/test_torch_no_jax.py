@@ -1,4 +1,5 @@
-"""The port and its chip scripts import neither JAX nor the JAX package.
+"""The port, its chip scripts and its card-side tests import neither JAX nor
+the JAX package.
 
 The machine with the card has no JAX installed, so any such import would
 break the port there.  Checked in a fresh interpreter: this test process has
@@ -14,7 +15,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = """
 import sys
 import apda_fft_tpu_torch
+import apda_fft_tpu_torch.models.batching
 import apda_fft_tpu_torch.models.pipeline
+import apda_fft_tpu_torch.models.streaming
 import apda_fft_tpu_torch.ops.detector_cuda
 import apda_fft_tpu_torch.ops.fft_cuda
 import apda_fft_tpu_torch.ops.latency_cuda
@@ -22,6 +25,7 @@ import apda_fft_tpu_torch.utils.kernels
 import apda_fft_tpu_torch.utils.profiling
 import chip_smoke
 import chip_profile
+import tests.test_torch_gpu_card
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "apda_fft_tpu" or m.startswith("apda_fft_tpu."))

@@ -253,8 +253,9 @@ def test_spectral_pipeline_and_metrics():
     assert tpipe.PipelineConfig.from_gateway_flag(False).mode == "rigid"
     with pytest.raises(NotImplementedError, match="mesh"):
         tpipe.SpectralPipeline(mesh=object())
-    with pytest.raises(NotImplementedError, match="Welch"):
-        pipe.welch(x, FS, window=256)
+    welch = pipe.welch(x, FS, window=256)
+    assert welch.count.shape == (4,)
+    assert "wall_time" in pipe.last_metrics and "candidate_budget" not in pipe.last_metrics
 
 
 def test_top_peak_helpers():

@@ -6,7 +6,7 @@ twin; it is held here against the JAX package's Pallas kernel
 and floats equal: both evaluate the same masked reductions, which are exact).
 ``prominence_peaks_batch`` is held against the JAX package's
 ``prominence_peaks_batch_pallas`` and the port's ``prominence_peaks`` on the
-finalized fields.  The CUDA kernel needs the card: the ``gpu``-marked test
+finalized fields.  The CUDA kernel needs the card: ``test_torch_gpu_card.py``
 and ``chip_smoke.py`` compare it with the twin there.
 """
 
@@ -118,18 +118,3 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         detector_cuda.prominence_scans(mags, cid.numpy(), cmag, nv)
     prom, bins = detector_cuda.prominence_scans(torch.zeros((0, 64)), cid[:0], cmag[:0], nv[:0])
     assert prom.shape == (0, 8) and bins.shape == (0, 8)
-
-
-@pytest.mark.gpu
-def test_kernel_matches_plain_on_the_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; chip_smoke.py runs this on the card")
-    for kind in ("modal", "noise", "flat", "ties"):
-        mags = _spectra(64, 2048, seed=5, kind=kind)
-        for m in (2, 12, 128):
-            cid, cmag, n_valid = (t.cuda() for t in _slots(mags, m))
-            x = torch.from_numpy(mags).cuda()
-            got = detector_cuda.prominence_scans(x, cid, cmag, n_valid)
-            want = detector_cuda._prominence_scans_plain(x, cid, cmag, n_valid)
-            for g, w in zip(got, want):
-                np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
