@@ -82,18 +82,23 @@ def _host_dtype(req) -> type:
     return np.float64 if f64 else np.float32
 
 
-def _to_host(result: EpochResult) -> EpochResult:
-    """``result`` on the host in one device-to-host copy per dtype: each
-    dtype's fields are packed into one buffer, copied, and split again."""
+def _host_copies(tensors: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """``tensors`` on the host in one device-to-host copy per dtype: each
+    dtype's tensors are packed into one buffer, copied, and split again."""
     groups: dict[torch.dtype, list[int]] = {}
-    for i, t in enumerate(result):
+    for i, t in enumerate(tensors):
         groups.setdefault(t.dtype, []).append(i)
-    out: list[torch.Tensor | None] = [None] * len(result)
+    out: list[torch.Tensor | None] = [None] * len(tensors)
     for idxs in groups.values():
-        host = torch.cat([result[i].reshape(-1) for i in idxs]).cpu()
-        for i, part in zip(idxs, torch.split(host, [result[i].numel() for i in idxs])):
-            out[i] = part.reshape(result[i].shape)
-    return EpochResult(*out)
+        host = torch.cat([tensors[i].reshape(-1) for i in idxs]).cpu()
+        for i, part in zip(idxs, torch.split(host, [tensors[i].numel() for i in idxs])):
+            out[i] = part.reshape(tensors[i].shape)
+    return out  # type: ignore[return-value]
+
+
+def _to_host(result: EpochResult) -> EpochResult:
+    """``result`` on the host in one device-to-host copy per dtype."""
+    return EpochResult(*_host_copies(result))
 
 
 def analyze_records(

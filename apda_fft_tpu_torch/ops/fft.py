@@ -210,17 +210,23 @@ _ieee_saved: list[str] = []
 
 @contextlib.contextmanager
 def ieee_fp32_matmul():
-    """Run float32 matrix products in full IEEE float32 (no TF32 on CUDA, no
-    reduced-precision oneDNN math on the CPU), restoring the caller's
-    settings afterwards.
+    """Run float32 matrix products and convolutions in full IEEE float32 (no
+    TF32 in cuBLAS or cuDNN on CUDA, no reduced-precision oneDNN math on the
+    CPU), restoring the caller's settings afterwards.
+
+    cuDNN convolutions allow TF32 by default, unlike cuBLAS matmuls; the
+    anti-aliasing filters of ``ops/resample.py`` need IEEE float32 for their
+    alias floor, as the JAX package asks with ``Precision.HIGHEST``.
 
     PyTorch keeps the setting process-wide.  Overlapping calls from several
     threads share one override: the first to enter saves the caller's
     settings and the last to leave restores them, so none can leak.  While
-    any call is inside, float32 matmuls on every thread run in IEEE.
+    any call is inside, float32 matmuls and convolutions on every thread run
+    in IEEE.
     """
     global _ieee_depth
-    knobs = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
+    knobs = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul,
+             torch.backends.cudnn.conv, torch.backends.mkldnn.conv)
     with _ieee_lock:
         if _ieee_depth == 0:
             _ieee_saved[:] = [k.fp32_precision for k in knobs]

@@ -58,55 +58,68 @@ def test_halfspec_rejects_unported_modes():
         tfft.halfspec_magnitudes(x, precision="low")
 
 
+#: Every float32 precision setting the IEEE guard pins, with a non-IEEE value
+#: a caller might hold: cuBLAS and oneDNN matmuls, cuDNN and oneDNN
+#: convolutions.
+_KNOBS = ((torch.backends.cuda.matmul, "tf32"), (torch.backends.mkldnn.matmul, "bf16"),
+          (torch.backends.cudnn.conv, "tf32"), (torch.backends.mkldnn.conv, "tf32"))
+
+
+def _precisions():
+    return [k.fp32_precision for k, _ in _KNOBS]
+
+
 def test_ieee_matmul_restores_the_callers_setting():
-    mm, cpu_mm = torch.backends.cuda.matmul, torch.backends.mkldnn.matmul
-    saved = mm.fp32_precision, cpu_mm.fp32_precision
+    saved = _precisions()
     try:
-        mm.fp32_precision = "tf32"
-        cpu_mm.fp32_precision = "bf16"
+        for k, v in _KNOBS:
+            k.fp32_precision = v
         with tfft.ieee_fp32_matmul():
-            assert mm.fp32_precision == "ieee"
-            assert cpu_mm.fp32_precision == "ieee"
-        assert mm.fp32_precision == "tf32"
-        assert cpu_mm.fp32_precision == "bf16"
+            assert _precisions() == ["ieee"] * len(_KNOBS)
+            with tfft.ieee_fp32_matmul():  # nested: still pinned, restored once
+                assert _precisions() == ["ieee"] * len(_KNOBS)
+            assert _precisions() == ["ieee"] * len(_KNOBS)
+        assert _precisions() == [v for _, v in _KNOBS]
     finally:
-        mm.fp32_precision, cpu_mm.fp32_precision = saved
+        for (k, _), v in zip(_KNOBS, saved):
+            k.fp32_precision = v
 
 
 def test_ieee_matmul_overlapping_calls_restore_once():
     """Two overlapping calls (as from two threads) that leave in the order
     they entered: the override holds until the last one leaves, and the
-    caller's setting comes back, not the override."""
-    mm = torch.backends.cuda.matmul
-    saved = mm.fp32_precision
+    caller's settings come back, not the override."""
+    saved = _precisions()
     try:
-        mm.fp32_precision = "tf32"
+        for k, v in _KNOBS:
+            k.fp32_precision = v
         first, second = tfft.ieee_fp32_matmul(), tfft.ieee_fp32_matmul()
         first.__enter__()
         second.__enter__()
         first.__exit__(None, None, None)
-        assert mm.fp32_precision == "ieee"
+        assert _precisions() == ["ieee"] * len(_KNOBS)
         second.__exit__(None, None, None)
-        assert mm.fp32_precision == "tf32"
+        assert _precisions() == [v for _, v in _KNOBS]
     finally:
-        mm.fp32_precision = saved
+        for (k, _), v in zip(_KNOBS, saved):
+            k.fp32_precision = v
 
 
 def test_ieee_matmul_thread_stress():
     """More threads than cores enter and leave the override at random
-    moments: inside, the setting is always IEEE; once all have left, the
-    caller's setting is back."""
-    mm = torch.backends.cuda.matmul
-    saved, interval = mm.fp32_precision, sys.getswitchinterval()
+    moments: inside, every setting is always IEEE; once all have left, the
+    caller's settings are back."""
+    saved, interval = _precisions(), sys.getswitchinterval()
     seen = []
 
     def work():
         for _ in range(200):
             with tfft.ieee_fp32_matmul():
-                seen.append(mm.fp32_precision)
+                seen.append(tuple(_precisions()))
 
     try:
-        mm.fp32_precision = "tf32"
+        for k, v in _KNOBS:
+            k.fp32_precision = v
         sys.setswitchinterval(1e-6)
         threads = [threading.Thread(target=work) for _ in range(2 * (os.cpu_count() or 4))]
         for t in threads:
@@ -114,11 +127,24 @@ def test_ieee_matmul_thread_stress():
         for t in threads:
             t.join(timeout=60)
         assert not any(t.is_alive() for t in threads)
-        assert len(seen) == 200 * len(threads) and set(seen) == {"ieee"}
-        assert mm.fp32_precision == "tf32"
+        assert len(seen) == 200 * len(threads) and set(seen) == {("ieee",) * len(_KNOBS)}
+        assert _precisions() == [v for _, v in _KNOBS]
     finally:
         sys.setswitchinterval(interval)
-        mm.fp32_precision = saved
+        for (k, _), v in zip(_KNOBS, saved):
+            k.fp32_precision = v
+
+
+def test_ieee_guard_keeps_a_convolution_in_float32():
+    """A float32 ``conv1d`` inside the guard equals the float64 convolution
+    to float32 rounding (the resampling filters' contract), on the CPU."""
+    rng = np.random.default_rng(4)
+    x, w = rng.standard_normal((4, 1, 3000)), rng.standard_normal((1, 1, 97))
+    with tfft.ieee_fp32_matmul():
+        got = torch.nn.functional.conv1d(torch.from_numpy(x).float(),
+                                         torch.from_numpy(w).float(), stride=3)
+    want = torch.nn.functional.conv1d(torch.from_numpy(x), torch.from_numpy(w), stride=3)
+    assert float((got.double() - want).abs().max() / want.abs().max()) < 1e-6
 
 
 def test_halfspec_multithreaded_cpu_matches_one_thread():

@@ -12,7 +12,8 @@ Every test is marked ``gpu`` and skips without a CUDA device.  Each kernel
 end), B5 (pre-selected scans) - is called on a CUDA tensor and held against
 the plain twin its wrapper runs on a CPU tensor; each entry point runs on
 the card and on the CPU, with decisions equal to each other and to the
-float64 oracle.
+float64 oracle.  The field ops and the modal analysis (FDD, whose detector
+is B1, and SSI) run on the card against the CPU run and scipy.
 """
 
 import importlib.util
@@ -22,11 +23,12 @@ import numpy as np
 import pytest
 import torch
 
-from apda_fft_tpu_torch.models import batching, streaming
+from apda_fft_tpu_torch.models import batching, modal, ssi, streaming
 from apda_fft_tpu_torch.models import pipeline as tpipe
-from apda_fft_tpu_torch.ops import detector_cuda, fft_cuda
+from apda_fft_tpu_torch.ops import detector_cuda, fft_cuda, integrate, resample, ringdown, srs
 from apda_fft_tpu_torch.ops import latency_cuda as tlat
 from apda_fft_tpu_torch.ops.peaks_prominence import prominence_select
+from apda_fft_tpu_torch.utils.synthetic import modal_records
 
 _TESTS = os.path.dirname(os.path.abspath(__file__))
 _SLOT_FIELDS = ("cid", "is_cand", "cmag", "prom", "bins", "std", "n_cand")
@@ -263,3 +265,104 @@ def test_records_and_welch_on_the_card(mode):
         for f in DECISIONS:
             np.testing.assert_array_equal(getattr(gpu, f).cpu().numpy(),
                                           getattr(cpu, f).numpy(), err_msg=f"{backend} {f}")
+
+
+# -- field ops and modal analysis --------------------------------------------
+
+
+@pytest.mark.gpu
+def test_field_ops_on_the_card_match_the_cpu_and_scipy():
+    """Integration, severity, ring-down, resampling and the SRS on the card
+    against the CPU run (integration within 1e-5 of each row's scale,
+    severity rtol 1e-5, ring-down rtol 1e-4 with the same NaNs, SRS rtol
+    5e-5) and resampling against ``scipy.signal.resample_poly`` (< 3e-6 of
+    the peak: the convolution runs in IEEE float32, not TF32)."""
+    _need_card()
+    import scipy.signal as sig
+
+    rng = np.random.default_rng(19)
+    t = np.arange(4096) / FS
+    x = (np.sin(2 * np.pi * 25.3 * t) + 0.2 * rng.standard_normal((8, 4096)) + 0.3).astype(
+        np.float32)
+    # Rows whose velocity is small beside a 1 g offset and broadband noise:
+    # there an imaginary Nyquist bin handed to cuFFT's C2R showed.
+    x[4:] = (1.0 + 0.01 * np.sin(2 * np.pi * 180.0 * t)
+             + 0.01 * rng.standard_normal((4, 4096))).astype(np.float32)
+    for order in (1, 2):
+        gpu = integrate.integrate_acceleration(x, FS, order=order)
+        cpu = integrate.integrate_acceleration(x, FS, order=order, device="cpu")
+        assert gpu.device.type == "cuda"
+        scale = cpu.abs().amax(dim=-1)
+        assert bool(((gpu.cpu() - cpu).abs().amax(dim=-1) <= 1e-5 * scale).all()), order
+    np.testing.assert_allclose(integrate.velocity_rms(x, FS, band=(10.0, 200.0)).cpu().numpy(),
+                               integrate.velocity_rms(x, FS, band=(10.0, 200.0),
+                                                      device="cpu").numpy(), rtol=1e-5)
+    w0 = 2 * np.pi * np.array([20.0, 80.0])[:, None]
+    decay = (np.exp(-np.array([[0.01], [0.03]]) * w0 * t[:2048]) * np.sin(w0 * t[:2048])).astype(
+        np.float32)
+    gpu = ringdown.ringdown_damping(decay, FS, np.array([20.0, 80.0])).cpu().numpy()
+    cpu = ringdown.ringdown_damping(decay, FS, np.array([20.0, 80.0]), device="cpu").numpy()
+    np.testing.assert_array_equal(np.isnan(gpu), np.isnan(cpu))
+    np.testing.assert_allclose(gpu, cpu, rtol=1e-4)
+    np.testing.assert_allclose(gpu, [0.01, 0.03], rtol=0.1)
+    xd = rng.standard_normal((4, 8192))
+    for up, down in ((1, 2), (1, 8), (5, 8)):
+        got = (resample.decimate(xd, down) if up == 1 else resample.resample_rational(xd, up, down))
+        taps = (resample.design_decimation_taps(down) if up == 1
+                else resample._rational_taps(up, down, 12, 0.8) / up)
+        ref = sig.resample_poly(xd, up, down, axis=-1, window=taps)
+        assert np.abs(got - ref).max() / np.abs(ref).max() < 3e-6, (up, down)
+    shock = np.where(np.arange(4096) < 11, 50 * np.sin(np.pi * np.arange(4096) / 11), 0.0)
+    shock = (shock + 0.5 * rng.standard_normal((4, 4096))).astype(np.float32)
+    gpu = srs.shock_response_spectrum(shock, 1000.0)
+    cpu = srs.shock_response_spectrum(shock, 1000.0, device="cpu")
+    for f in ("maximax", "positive", "negative"):
+        np.testing.assert_allclose(getattr(gpu, f), getattr(cpu, f), rtol=5e-5,
+                                   atol=1e-6 * np.abs(cpu.maximax).max(), err_msg=f)
+
+
+def _modal_array(s: int) -> tuple[np.ndarray, np.ndarray]:
+    """An ``[s, 16384]`` array at 500 Hz: modes at 12.3, 31.7 and 58.9 Hz
+    with bending-like shapes along a line of sensors."""
+    shapes = np.array([np.sin(np.pi * (m + 1) * (np.arange(s) + 1) / (s + 1)) for m in range(3)])
+    x = modal_records(shapes * np.array([1.0, 2.0, 4.0])[:, None], (12.3, 31.7, 58.9),
+                      (0.01, 0.015, 0.02), FS, 16384 / FS, seed=9)
+    return x, shapes
+
+
+@pytest.mark.gpu
+def test_fdd_and_ssi_on_the_card_match_the_cpu():
+    """``fdd`` (the gateway's call) on the card: B1 launches, every B1 call
+    equals its plain twin, decisions equal the CPU run, shapes at MAC >=
+    0.99 against the known ones; ``ssi`` on the card: the CPU run's modes."""
+    _need_card()
+    x, shapes = _modal_array(8)
+    calls = []
+    real = detector_cuda.prominence_select_scan
+
+    def tap(mags, m):
+        out = real(mags, m)
+        calls.append((mags.clone(), m, out))
+        return out
+
+    before = detector_cuda.launches
+    detector_cuda.prominence_select_scan = tap
+    try:
+        gpu = modal.fdd(x, FS, 1024, efdd=True, harmonics=True)
+    finally:
+        detector_cuda.prominence_select_scan = real
+    assert detector_cuda.launches == before + 1 and len(calls) == 1
+    mags, m, got = calls[0]
+    _assert_slots_equal(got, detector_cuda._prominence_select_scan_plain(mags, m), "fdd B1")
+    cpu = modal.fdd(x, FS, 1024, efdd=True, harmonics=True, device="cpu")
+    for f in ("count", "idx", "freq", "damping"):
+        np.testing.assert_array_equal(getattr(gpu, f), getattr(cpu, f), err_msg=f)
+    assert np.abs(gpu.sv1 - cpu.sv1).max() <= 5e-6 * cpu.sv1.max()
+    n = int(gpu.count)
+    assert n == 3
+    assert modal.modal_assurance(gpu.shapes()[:n], shapes).diagonal().min() >= 0.99
+    s_gpu, s_cpu = ssi.ssi(x, FS), ssi.ssi(x, FS, device="cpu")
+    assert s_gpu.count == s_cpu.count == 3
+    for a, b in zip(s_gpu.modes, s_cpu.modes):
+        assert abs(a.freq - b.freq) <= 2e-5 * b.freq + b.freq_std
+        assert modal.modal_assurance(a.shape, b.shape)[0, 0] >= 0.9999

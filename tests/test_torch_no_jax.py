@@ -16,13 +16,20 @@ _PROBE = """
 import sys
 import apda_fft_tpu_torch
 import apda_fft_tpu_torch.models.batching
+import apda_fft_tpu_torch.models.modal
 import apda_fft_tpu_torch.models.pipeline
+import apda_fft_tpu_torch.models.ssi
 import apda_fft_tpu_torch.models.streaming
 import apda_fft_tpu_torch.ops.detector_cuda
 import apda_fft_tpu_torch.ops.fft_cuda
+import apda_fft_tpu_torch.ops.integrate
 import apda_fft_tpu_torch.ops.latency_cuda
+import apda_fft_tpu_torch.ops.resample
+import apda_fft_tpu_torch.ops.ringdown
+import apda_fft_tpu_torch.ops.srs
 import apda_fft_tpu_torch.utils.kernels
 import apda_fft_tpu_torch.utils.profiling
+import apda_fft_tpu_torch.utils.synthetic
 import chip_smoke
 import chip_profile
 import tests.test_torch_gpu_card
