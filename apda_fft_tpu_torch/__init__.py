@@ -14,7 +14,8 @@ records (:func:`analyze_records`), streams
 and cross spectra run on the same kernels, and so does the modal analysis
 (:func:`fdd`, whose detector is the select+scan kernel; :func:`ssi`).  The
 field ops (integration, ring-down damping, resampling, the shock response
-spectrum) are torch and host numpy.
+spectrum) are torch and host numpy.  The gateway (``gateway/``, ``io/``,
+:class:`PeakTracker`) is host code whose analysis legs run on the card.
 
 Quick start::
 
@@ -63,6 +64,7 @@ from apda_fft_tpu_torch.models.streaming import (
     spectrogram,
     welch_psd,
 )
+from apda_fft_tpu_torch.models.tracking import PeakTracker, Track, match_peaks
 from apda_fft_tpu_torch.ops.detector_cuda import (
     prominence_peaks_batch,
     prominence_peaks_fused,
@@ -109,6 +111,7 @@ __all__ = [
     "G_TO_MMS2",
     "ModalTracker",
     "ModeTrack",
+    "PeakTracker",
     "PipelineConfig",
     "ProminencePeaks",
     "RecordPeaks",
@@ -117,6 +120,7 @@ __all__ = [
     "SSIMode",
     "SSIResult",
     "SpectralPipeline",
+    "Track",
     "analyze_epoch",
     "analyze_epochs_pipelined",
     "analyze_records",
@@ -142,6 +146,7 @@ __all__ = [
     "integrate_acceleration",
     "last_dynamic_stats",
     "load_dynamic_state",
+    "match_peaks",
     "modal_assurance",
     "modal_phase_collinearity",
     "next_pow2",

@@ -168,7 +168,28 @@ oracle, with the host wall of one call beside its device busy time
    the CPU run and the known modes; the correlation blocks one product a
    lag against one batched product over an ``unfold`` view at S = 32 and
    256 (CUDA events), the blocks' and the host identification's times;
-22. one JSON line describing the five kernels, each with its bound (the
+
+Phase 22 drives the port's gateway, the system its users run:
+
+22. ``GatewayService`` on the card (``tests/test_torch_gateway_parity.py``'s harness:
+   fake FTP session and HTTP opener, ticking clock) over
+   ``benchmarks/scale_soak.py``'s 256 sensors with the full-feature
+   configuration and traffic mix of ``benchmarks/endurance.py`` (shock with
+   ring-down and SRS, temperature-compensated drift, FDD window 256, SSI
+   12 block rows, harmonic check, modal decimation, severity 5-100 Hz; 15 %
+   of sensors skip an epoch, 250 / 125 Hz, 1000 or 2048 samples in packets
+   of 200, 72 % clean / 10 % dropped / 8 % truncated / 6 % shock / 4 %
+   reduced), 3 epochs with the launch counts zeroed before and read after
+   and every B1 call tapped and held against its plain twin; the same
+   packets through the port on the CPU (one intra-op thread) give the same
+   history, ``fft_results``, uploads, API payloads and drift and modal
+   state (SSI under ``tests/test_torch_ssi.py``'s rule); the native ingest
+   must have loaded; per epoch packets, acquisitions, host wall, ingest
+   rate, B1 launches and report lines; one more epoch under
+   ``torch.profiler`` for the device busy time and idle share; then
+   ``python -m apda_fft_tpu_torch.gateway --simulate --sensors 4`` on the
+   card finds both modes of each sensor;
+23. one JSON line describing the five kernels, each with its bound (the
    larger of its bytes over 3.35 TB/s and its float32 operations over
    67 TFLOP/s, computed from the shapes timed) and the time of one
    PyTorch call computing the same function where there is one, the card
@@ -186,6 +207,7 @@ import importlib.util
 import json
 import os
 import platform
+import re
 import statistics
 import subprocess
 import sys
@@ -2436,6 +2458,181 @@ def phase_ssi(arrays: dict, card: str) -> None:
         f"whole call {whole:.3f} ms (host wall, median of 5; {card})")
 
 
+# ---------------------------------------------------------------- the gateway
+
+#: The gateway cell: ``benchmarks/scale_soak.py``'s 256 sensors, with the
+#: full-feature configuration and traffic of ``benchmarks/endurance.py``
+#: (257-279 and 298-345), 3 epochs compared with the CPU run.
+GATEWAY_SENSORS, GATEWAY_EPOCHS = 256, 3
+
+
+@contextlib.contextmanager
+def _ssi_results():
+    """Records every ``ssi`` result while active (the gateway imports
+    ``ssi`` from its module at call time)."""
+    real, got = ssi.ssi, []
+
+    def tap(*args, **kwargs):
+        res = real(*args, **kwargs)
+        got.append(res)
+        return res
+
+    ssi.ssi = tap
+    try:
+        yield got
+    finally:
+        ssi.ssi = real
+
+
+def _assert_ssi_close(got, want, where: str) -> None:
+    """``tests/test_torch_ssi.py``'s rule: the same modes, ``n_orders``
+    within 1, frequencies within 2e-5 relative plus the cluster spread,
+    dampings within 1e-2 relative plus theirs, shapes at MAC >= 0.9999."""
+    assert got.count == want.count, (where, got.freqs(), want.freqs())
+    for a, b in zip(got.modes, want.modes):
+        assert abs(a.n_orders - b.n_orders) <= 1, where
+        assert abs(a.freq - b.freq) <= 2e-5 * b.freq + b.freq_std, (where, a.freq, b.freq)
+        assert abs(a.damping - b.damping) <= 1e-2 * b.damping + b.damping_std, \
+            (where, a.damping, b.damping)
+        assert modal.modal_assurance(a.shape, b.shape)[0, 0] >= 0.9999, where
+        assert abs(a.mpc - b.mpc) <= 1e-4, where
+    np.testing.assert_allclose(got.hankel_sv, want.hankel_sv, rtol=0,
+                               atol=1e-5 * want.hankel_sv.max(), err_msg=where)
+    np.testing.assert_array_equal(got.orders, want.orders, err_msg=where)
+
+
+def _gateway_run(gp, root: str, epochs, device: str) -> tuple[object, list, list]:
+    """Drives the full-feature gateway over ``epochs`` (traffic, heartbeats)
+    on ``device``; returns the still running side, per-epoch figures and
+    the SSI results."""
+    side = gp.Side("apda_fft_tpu_torch", root, flush_mode="on_sync",
+                   gateway_extra=gp.FULL_FEATURE, device=device)
+    on_card = torch.device(device).type == "cuda"
+    stats = []
+    with _ssi_results() as ssi_res:
+        for traffic, beat in epochs:
+            b1, n_hist = detector_cuda.launches, len(side.history())
+            t0 = time.perf_counter()
+            packets = side.feed(traffic)
+            t_ingest = time.perf_counter() - t0
+            analysed = len(side.svc.pending_analysis)
+            packets += side.feed(beat)
+            if on_card:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            new = side.history()[n_hist:]
+            stats.append({
+                "packets": packets, "analysed": analysed, "wall_s": wall,
+                "ingest_msamp_s": gp.samples_carried(traffic) / t_ingest / 1e6,
+                "b1_launches": detector_cuda.launches - b1,
+                "fdd_lines": sum("[FDD]" in ln for ln in new),
+                "ssi_lines": sum("[SSI]" in ln for ln in new)})
+    return side, stats, ssi_res
+
+
+def phase_gateway(card: str) -> tuple[dict[str, int], dict[str, float]]:
+    """The port's ``GatewayService`` on the card over the 256-sensor
+    full-feature configuration and traffic, 3 epochs, every B1 call tapped
+    and held against its plain twin; the same packets through the port on
+    the CPU (one intra-op thread) give the same decisions; one more epoch on
+    the card under ``torch.profiler``; then ``python -m
+    apda_fft_tpu_torch.gateway --simulate`` on the card.  Returns launches
+    and errors."""
+    import tempfile
+
+    from apda_fft_tpu_torch.io import native
+
+    assert native.available(), "the native ingest did not build on the card's host"
+    gp = _load_module("apda_gateway_parity", "test_torch_gateway_parity.py")
+    port = "apda_fft_tpu_torch"
+    macs = [f"0013a20041e7{i:04x}" for i in range(GATEWAY_SENSORS)]
+    rng = np.random.default_rng(2035)
+    mix: dict = {}
+    epochs = [(gp.full_feature_epoch(port, macs, e, rng, seed=1, counts=mix),
+              gp.heartbeats(port, macs)) for e in range(GATEWAY_EPOCHS + 1)]
+    log(f"[22 gateway] {GATEWAY_SENSORS} sensors, {GATEWAY_EPOCHS} epochs + 1 profiled, "
+        f"traffic mix {mix}; native ingest {native._library_path()}")
+    with tempfile.TemporaryDirectory(prefix="apda_gw_") as root:
+        _zero_counts()
+        with _Taps() as taps:
+            card_side, stats, card_ssi = _gateway_run(gp, os.path.join(root, "card"),
+                                                      epochs[:GATEWAY_EPOCHS], "cuda")
+            launches = _counts()
+            log(f"[22 gateway] kernel launches on the gateway path: {launches}")
+            assert launches["prominence_select_scan"] > 0, "the gateway never launched B1"
+            assert sum(launches.values()) == launches["prominence_select_scan"], launches
+            err = taps.check("22 gateway")
+        with _one_cpu_thread():
+            cpu_side, cpu_stats, cpu_ssi = _gateway_run(gp, os.path.join(root, "cpu"),
+                                                        epochs[:GATEWAY_EPOCHS], "cpu")
+            cpu_s = cpu_side.surface()
+            cpu_side.svc.stop()
+        card_s = card_side.surface()
+        gp.assert_same_surface(card_s, cpu_s, "gateway card vs CPU", ssi_rule=True)
+        assert len(card_ssi) == len(cpu_ssi), (len(card_ssi), len(cpu_ssi))
+        for i, (a, b) in enumerate(zip(card_ssi, cpu_ssi)):
+            _assert_ssi_close(a, b, f"gateway ssi call {i}")
+        hist = card_s["history"]
+        for needle in ("Peaks:", "Missing packets", "Anomalous closure", "Shock SRS:",
+                       "Vibration severity", "[FDD]", "[SSI]", "decimated"):
+            assert any(needle in ln for ln in hist), needle
+        log(f"[22 gateway] card run equal to the CPU run (one intra-op thread): history "
+            f"({len(hist)} lines, self-metrics masked), fft_results, {len(card_s['ftp'])} "
+            f"uploads, {len(card_s['api'])} API payloads, drift and modal state; "
+            f"{len(card_ssi)} SSI results under tests/test_torch_ssi.py's rule")
+        for e, st in enumerate(stats):
+            log(f"[22 gateway] epoch {e}: {st['packets']} packets, {st['analysed']} acquisitions "
+                f"analysed, host wall {st['wall_s']:.3f} s (CPU run {cpu_stats[e]['wall_s']:.3f} "
+                f"s), ingest {st['ingest_msamp_s']:.3f} Msamp/s, B1 launches "
+                f"{st['b1_launches']}, [FDD] lines {st['fdd_lines']}, [SSI] lines "
+                f"{st['ssi_lines']}")
+        walls = [st["wall_s"] for st in stats]
+        log(f"[22 times] gateway epoch host wall median {statistics.median(walls):.3f} s of "
+            f"{[round(w, 3) for w in walls]} (card), CPU run median "
+            f"{statistics.median(st['wall_s'] for st in cpu_stats):.3f} s; ingest median "
+            f"{statistics.median(st['ingest_msamp_s'] for st in stats):.3f} Msamp/s; {card}")
+
+        # One more epoch of the card run, under the profiler: device busy
+        # time (kernels and copies) against that epoch's host wall.
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        traffic, beat = epochs[GATEWAY_EPOCHS]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            card_side.feed(traffic)
+            card_side.feed(beat)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        card_side.svc.stop()
+        events = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+        busy = sum(ev.device_time for ev in events) / 1e6
+        kernels = sum(1 for ev in events if not ev.name.startswith(("Memcpy", "Memset")))
+        top: dict[str, float] = {}
+        for ev in events:
+            top[ev.name[:60]] = top.get(ev.name[:60], 0.0) + ev.device_time / 1e3
+        top5 = sorted(top.items(), key=lambda kv: -kv[1])[:5]
+        log(f"[22 times] profiled gateway epoch: host wall {wall:.3f} s (under the profiler), "
+            f"device busy {busy * 1e3:.3f} ms in {kernels} kernels + "
+            f"{len(events) - kernels} copies/sets, idle share {1 - busy / wall:.4f}; top "
+            f"device time (ms) {[(k, round(v, 3)) for k, v in top5]}; {card}")
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "apda_fft_tpu_torch.gateway", "--simulate", "--sensors", "4"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    peaks = [ln for ln in proc.stdout.splitlines() if "Peaks:" in ln]
+    assert len(peaks) == 4, proc.stdout[-4000:]
+    for i, line in enumerate(peaks):
+        found = [float(f) for f in re.findall(r"f\d: ([0-9.]+)Hz", line)]
+        for f in (8.0 + 3.1 * i, 40.0 + 2.7 * i):
+            assert any(abs(g - f) < 0.2 for g in found), (i, f, line)
+    log(f"[22 gateway] python -m apda_fft_tpu_torch.gateway --simulate --sensors 4 on the card: "
+        f"exit 0, both modes of each sensor found")
+    return launches, err
+
+
 def main() -> int:
     t0 = time.perf_counter()
     card = phase_device()
@@ -2464,10 +2661,12 @@ def main() -> int:
     arrays = {s: modal_array(s) for s in MODAL_SENSORS}
     paths["fdd"] = phase_fdd(arrays, card)
     phase_ssi(arrays, card)
-    log(f"[21 launches] by path: { {name: launches for name, (launches, _) in paths.items()} }")
+    log(f"[21 elapsed] phases 1-21 in {time.perf_counter() - t0:.1f} s")
+    paths["gateway"] = phase_gateway(card)
+    log(f"[22 launches] by path: { {name: launches for name, (launches, _) in paths.items()} }")
     path_launches = {key: sum(p[0][key] for p in paths.values()) for key in _counts()}
     path_err = _max_err(*(err for _, err in paths.values()))
-    log(f"[21 elapsed] phases 1-21 in {time.perf_counter() - t0:.1f} s")
+    log(f"[22 elapsed] phases 1-22 in {time.perf_counter() - t0:.1f} s")
 
     h, m12 = N_FFT // 2, 12
     # Per kernel, at the shapes its time was taken at: (bytes of its inputs

@@ -366,3 +366,32 @@ def test_fdd_and_ssi_on_the_card_match_the_cpu():
     for a, b in zip(s_gpu.modes, s_cpu.modes):
         assert abs(a.freq - b.freq) <= 2e-5 * b.freq + b.freq_std
         assert modal.modal_assurance(a.shape, b.shape)[0, 0] >= 0.9999
+
+
+@pytest.mark.gpu
+def test_gateway_on_the_card_matches_the_cpu(tmp_path):
+    """The full-feature gateway (``tests/test_torch_gateway_parity.py``'s
+    ``FULL_FEATURE``) over 8 sensors and 2 epochs of its traffic mix, on
+    the card and on the CPU: the same decisions (history, ``fft_results``,
+    uploads, API payloads, drift and modal state), and B1 launched."""
+    _need_card()
+    gp = _load("test_torch_gateway_parity")
+    port = "apda_fft_tpu_torch"
+    macs = [f"0013a20041e7{i:04x}" for i in range(8)]
+    rng = np.random.default_rng(0)
+    epochs = [(gp.full_feature_epoch(port, macs, e, rng), gp.heartbeats(port, macs))
+              for e in range(2)]
+    surfaces = []
+    for device in ("cuda", "cpu"):
+        side = gp.Side(port, tmp_path / device, flush_mode="on_sync",
+                       gateway_extra=gp.FULL_FEATURE, device=device)
+        before = detector_cuda.launches
+        for traffic, beat in epochs:
+            side.feed(traffic)
+            side.feed(beat)
+        if device == "cuda":
+            assert detector_cuda.launches > before
+        surfaces.append(side.surface())
+        side.svc.stop()
+    gp.assert_same_surface(surfaces[0], surfaces[1], "card vs CPU")
+    assert any("[FDD]" in line for line in surfaces[0]["history"])

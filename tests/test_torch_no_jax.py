@@ -15,11 +15,26 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = """
 import sys
 import apda_fft_tpu_torch
+import apda_fft_tpu_torch.gateway
+import apda_fft_tpu_torch.gateway.__main__
+import apda_fft_tpu_torch.gateway.async_upload
+import apda_fft_tpu_torch.gateway.config
+import apda_fft_tpu_torch.gateway.egress
+import apda_fft_tpu_torch.gateway.history
+import apda_fft_tpu_torch.gateway.service
+import apda_fft_tpu_torch.gateway.telemetry
+import apda_fft_tpu_torch.gateway.transport
+import apda_fft_tpu_torch.io
+import apda_fft_tpu_torch.io.halffloat
+import apda_fft_tpu_torch.io.logfile
+import apda_fft_tpu_torch.io.native
+import apda_fft_tpu_torch.io.packets
 import apda_fft_tpu_torch.models.batching
 import apda_fft_tpu_torch.models.modal
 import apda_fft_tpu_torch.models.pipeline
 import apda_fft_tpu_torch.models.ssi
 import apda_fft_tpu_torch.models.streaming
+import apda_fft_tpu_torch.models.tracking
 import apda_fft_tpu_torch.ops.detector_cuda
 import apda_fft_tpu_torch.ops.fft_cuda
 import apda_fft_tpu_torch.ops.integrate
@@ -32,6 +47,7 @@ import apda_fft_tpu_torch.utils.profiling
 import apda_fft_tpu_torch.utils.synthetic
 import chip_smoke
 import chip_profile
+import tests.test_torch_gateway_parity
 import tests.test_torch_gpu_card
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
