@@ -217,6 +217,19 @@ def sv_spectra(gr: torch.Tensor, gi: torch.Tensor, iters: int = _POWER_ITERS):
     return s1, s2, vr, vi
 
 
+def _sv_spectra_sharded(gr: torch.Tensor, gi: torch.Tensor, mesh, axis: str, iters: int):
+    """:func:`sv_spectra` with the frequency axis of ``[H, S, S]`` split over
+    ``axis``: each block of bins on its device, the four results gathered
+    in bin order on the device of ``gr``."""
+    from apda_fft_tpu_torch.parallel.mesh import _gather
+
+    devices = mesh.axis_devices(axis)
+    parts = [sv_spectra(_pipeline._to_device(r, dev), _pipeline._to_device(i, dev), iters)
+             for r, i, dev in zip(gr.tensor_split(len(devices)), gi.tensor_split(len(devices)),
+                                  devices)]
+    return _gather(parts, gr.device)
+
+
 def fdd_segments(t: int, window: int, hop: int | None = None) -> int:
     """Number of Welch segments :func:`fdd`/:func:`csd_matrix` will frame."""
     hop = max(window // 2, 1) if hop is None else hop
@@ -413,12 +426,18 @@ def fdd(
     ``efdd=True`` fills ``damping_efdd`` with the enhanced-FDD estimate;
     ``harmonics=True`` fills ``kurtosis`` with :func:`harmonic_indicator`.
     ``selection`` takes only ``"auto"``, the port's one order-exact
-    selection.  A sharded run (``mesh=``) is not ported yet and raises.
+    selection.
+
+    ``mesh`` (a :class:`~apda_fft_tpu_torch.parallel.mesh.Mesh`) splits the
+    per-bin power iteration along the FREQUENCY axis over ``mesh_axis``
+    (default: the mesh's first axis), one block of bins a device; the CSD
+    and the detector run on the mesh's first device (or ``device``).
+    Decisions are those of the single-device run.
     """
-    if mesh is not None:
-        raise NotImplementedError("sharded FDD (mesh=) is not ported yet")
     if selection != "auto":
         raise ValueError(f"unknown selection {selection!r}; the port has only 'auto'")
+    if mesh is not None and device is None:
+        device = mesh.first_device
     records = _pipeline._placed(records, device, dtype)
     _check_records(records, hop)
     if fdd_segments(records.shape[-1], window, hop) < 2:
@@ -431,7 +450,11 @@ def fdd(
 
     freqs, gr, gi = csd_matrix(records, fs, window, hop, taper=taper, detrend=detrend,
                                dtype=dtype)
-    s1, s2, vr, vi = sv_spectra(gr, gi, iters=iters)
+    if mesh is None:
+        s1, s2, vr, vi = sv_spectra(gr, gi, iters=iters)
+    else:
+        s1, s2, vr, vi = _sv_spectra_sharded(gr, gi, mesh, mesh_axis or mesh.axis_names[0],
+                                             iters)
     # Equivalent-magnitude spectrum: sqrt of the power-like s1, so the
     # detector's -3 dB width (and its damping) reads on a magnitude scale.
     mags = torch.sqrt(torch.clamp(s1, min=0.0))[None, :]

@@ -117,6 +117,16 @@ def _from_host(a: np.ndarray, device, dtype: torch.dtype | None = None) -> torch
     return t.to(device, non_blocking=True)
 
 
+def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``, waiting for the card only where the host reads
+    the copy: host memory to the card through :func:`_from_host`, card to
+    card by a ``non_blocking`` copy, and anything to the host by a blocking
+    one.  No copy at all when ``t`` lies on ``device`` already."""
+    if t.device.type == "cpu" and device.type == "cuda":
+        return _from_host(t.contiguous().numpy(), device)
+    return t.to(device, non_blocking=device.type == "cuda")
+
+
 def _fs_tensor(fs, dtype: torch.dtype, device) -> torch.Tensor:
     """Sampling rate(s) ``fs`` as a ``dtype`` tensor on ``device``; a scalar
     is filled there, so placing it does not wait for the card either."""
@@ -230,50 +240,95 @@ def _flex_detect(
     k: int,
     max_candidates: int | tuple[int, int, int],
 ) -> Any:
-    """Flexible-detector stage over a flat ``[B, H]`` batch.
+    """Flexible-detector stage over a flat ``[B, H]`` batch: one block of
+    :func:`_flex_detect_blocks`."""
+    return _flex_detect_blocks([mags], [fs_flat], n_fft=n_fft, k=k,
+                               max_candidates=max_candidates)[0]
+
+
+def _flex_detect_blocks(
+    mags: list[torch.Tensor],
+    fss: list[torch.Tensor],
+    *,
+    n_fft: int,
+    k: int,
+    max_candidates: int | tuple[int, int, int],
+    gather_device: torch.device | None = None,
+) -> list:
+    """Flexible-detector stage over a batch held as row blocks ``mags[j]``
+    ``[B_j, H]`` with rates ``fss[j]``, each on its own device (a sharded
+    epoch's shards; one device's batch is one block).  Returns one result a
+    block.
 
     ``max_candidates`` is a flat int budget or the two-tier split
     ``(m_small, m_big, s_cap)``: detect every window at ``m_small``, re-detect
-    at ``m_big`` only the <= ``s_cap`` windows whose walk reports
-    ``n_required > m_small``, and merge.  A straggler past the capacity
-    reports ``max(n_required, m_big + 1)``, so the dynamic loop's exactness
-    check fails and re-runs flat.
+    at ``m_big`` only the <= ``s_cap`` windows of the WHOLE batch whose walk
+    reports ``n_required > m_small`` (gathered on ``gather_device``, by
+    default the first block's, in one call), and merge each block's own
+    rows.  A straggler past the capacity reports ``max(n_required, m_big +
+    1)``, so the dynamic loop's exactness check fails and re-runs flat.
     """
 
     def flat_detect(m_b, f_b, budget: int):
         return prominence_peaks_fused(m_b, f_b, n_fft, k=k, max_candidates=budget)
 
     if not isinstance(max_candidates, tuple):
-        return flat_detect(mags, fs_flat, max_candidates)
+        return [flat_detect(m, f, max_candidates) for m, f in zip(mags, fss)]
 
     m_small, m_big, s_cap = max_candidates
-    b = mags.shape[0]
+    sizes = [m.shape[0] for m in mags]
+    b = sum(sizes)
     s_eff = min(s_cap, b)
     if m_small >= m_big or b < 4 * s_eff:
-        return flat_detect(mags, fs_flat, m_big)
+        return [flat_detect(m, f, m_big) for m, f in zip(mags, fss)]
 
-    r1 = flat_detect(mags, fs_flat, m_small)
-    need = r1.n_required > m_small
-    # Stable sort: straggler indices first (ascending), clean windows after.
+    dev0 = gather_device or mags[0].device
+    r1 = [flat_detect(m, f, m_small) for m, f in zip(mags, fss)]
+    need_b = [r.n_required > m_small for r in r1]
+    need = torch.cat([_to_device(n, dev0) for n in need_b])
+    # Stable sort: straggler indices first (ascending), clean windows after;
+    # the picks re-sorted by index group each block's rows together.
     order = torch.argsort((~need).to(torch.int8), stable=True)
-    sel = order[:s_eff]
+    sel = torch.sort(order[:s_eff]).values
     use2 = need[sel]
-    r2 = flat_detect(mags[sel], fs_flat[sel], m_big)
+    # The picked rows, gathered block by block without a host sync: each
+    # block gathers at every pick (its own row 0 for another block's) and
+    # the block that holds the pick wins.
+    members, local = [], []
+    big_m = big_f = None
+    lo = 0
+    for m, f, size in zip(mags, fss, sizes):
+        mem = (sel >= lo) & (sel < lo + size)
+        loc = torch.where(mem, sel - lo, 0)
+        loc_b = _to_device(loc, m.device)
+        rows, rates = _to_device(m[loc_b], dev0), _to_device(f[loc_b], dev0)
+        big_m = rows if big_m is None else torch.where(mem[:, None], rows, big_m)
+        big_f = rates if big_f is None else torch.where(mem, rates, big_f)
+        members.append(mem)
+        # A pick of another block writes to a dummy row past this block's end.
+        local.append(torch.where(mem, loc, size))
+        lo += size
+    r2 = flat_detect(big_m, big_f, m_big)
 
-    def merge(a1, a2):
-        u = use2.reshape((s_eff,) + (1,) * (a2.dim() - 1))
-        out = a1.clone()
-        out[sel] = torch.where(u, a2, a1[sel])
-        return out
+    out = []
+    for r, need_j, mem, idx, size in zip(r1, need_b, members, local, sizes):
+        dev = need_j.device
+        idx, upd = _to_device(idx, dev), _to_device(mem & use2, dev)
 
-    merged = type(r1)(*(merge(a1, a2) for a1, a2 in zip(r1, r2)))
-    selmask = torch.zeros(b, dtype=torch.bool, device=mags.device)
-    selmask[sel] = True
-    overflowed = need & ~selmask
-    n_req = torch.where(
-        overflowed, torch.clamp(merged.n_required, min=m_big + 1), merged.n_required
-    )
-    return merged._replace(n_required=n_req)
+        def merge(a1, a2):
+            padded = torch.cat([a1, a1[:1]])
+            u = upd.reshape((s_eff,) + (1,) * (a2.dim() - 1))
+            padded[idx] = torch.where(u, _to_device(a2, dev), padded[idx])
+            return padded[:size]
+
+        merged = type(r)(*(merge(a1, a2) for a1, a2 in zip(r, r2)))
+        selmask = torch.zeros(size + 1, dtype=torch.bool, device=dev)
+        selmask[idx] = True
+        overflowed = need_j & ~selmask[:size]
+        n_req = torch.where(overflowed, torch.clamp(merged.n_required, min=m_big + 1),
+                            merged.n_required)
+        out.append(merged._replace(n_required=n_req))
+    return out
 
 
 def _detect_from_mags(
@@ -286,14 +341,20 @@ def _detect_from_mags(
     max_candidates: int | tuple[int, int, int],
     refine: bool,
     half_corr: torch.Tensor | None = None,
+    flex: Any = None,
 ) -> EpochResult:
-    """Detector + finalize stage on half-spectrum magnitudes ``[B, H]``."""
+    """Detector + finalize stage on half-spectrum magnitudes ``[B, H]``.
+
+    ``flex`` is the flexible detector's result when the caller already ran
+    it (a sharded epoch's two-tier pass); else it runs here."""
 
     def rigid():
         return resolution_peaks(mags, fs_flat, n_fft, k=k, half_corr=half_corr)
 
+    if flex is None and mode in ("flexible", "adaptive"):
+        flex = _flex_detect(mags, fs_flat, n_fft=n_fft, k=k, max_candidates=max_candidates)
     if mode == "flexible":
-        det = _flex_detect(mags, fs_flat, n_fft=n_fft, k=k, max_candidates=max_candidates)
+        det = flex
         prom, damp, qf = det.prominence, det.damping, det.q_factor
         n_cand, n_req = det.n_candidates, det.n_required
     elif mode == "rigid":
@@ -306,7 +367,6 @@ def _detect_from_mags(
         # The prominence detector's damping band can reject everything on
         # very sharp or very broad spectra; those windows fall back to the
         # resolution detector, per window.
-        flex = _flex_detect(mags, fs_flat, n_fft=n_fft, k=k, max_candidates=max_candidates)
         rig = rigid()
         use_flex = (flex.count > 0)[:, None]
         zeros = torch.zeros_like(flex.freq)
@@ -385,6 +445,26 @@ def _analyze_epoch_impl(
             torch.cat(xs)[:b].reshape(lead + xs[0].shape[1:]) for xs in zip(*parts)
         ))
 
+    mags = _epoch_spectra(flat, len_flat, n_fft=n_fft, backend=backend, center=center,
+                          taper=taper, precision=precision)
+    res = _detect_from_mags(mags, fs_flat, half_corr=corr_flat, **{
+        key: kw[key] for key in ("n_fft", "mode", "k", "max_candidates", "refine")
+    })
+    return EpochResult(*(x.reshape(lead + x.shape[1:]) for x in res))
+
+
+def _epoch_spectra(
+    flat: torch.Tensor,
+    len_flat: torch.Tensor | None,
+    *,
+    n_fft: int,
+    backend: str,
+    center: str,
+    taper: str,
+    precision: str,
+) -> torch.Tensor:
+    """The front end over flat windows ``[B, L]``: centre, pad, taper, then
+    the ``[B, n_fft/2]`` magnitude spectrum."""
     if center == "auto" and len_flat is None and flat.shape[-1] == n_fft:
         # Full, unpadded windows: a constant offset only moves the DC bin,
         # which is zeroed anyway, so the median sort is skipped; the mean is
@@ -402,11 +482,7 @@ def _analyze_epoch_impl(
         windows = windows * fft_ops.taper_window(
             taper, windows.shape[-1], windows.dtype, tlen, device=windows.device
         )
-    mags = fft_ops.halfspec_magnitudes(windows, backend=backend, precision=precision)
-    res = _detect_from_mags(mags, fs_flat, half_corr=corr_flat, **{
-        key: kw[key] for key in ("n_fft", "mode", "k", "max_candidates", "refine")
-    })
-    return EpochResult(*(x.reshape(lead + x.shape[1:]) for x in res))
+    return fft_ops.halfspec_magnitudes(windows, backend=backend, precision=precision)
 
 
 def _rigid_corr_batch(fs_host: np.ndarray, lead, n_fft: int) -> np.ndarray | None:
@@ -545,8 +621,6 @@ def analyze_epoch(
         samples = samples[None, :]
     if n_fft is None:
         n_fft = fft_ops.next_pow2(samples.shape[-1])
-    if mode not in MODES:
-        raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
     if k is None:
         k = default_k(mode)
     lead = samples.shape[:-1]
@@ -557,41 +631,20 @@ def analyze_epoch(
             lengths = _from_host(np.asarray(lengths), dev)
         lengths = lengths.to(device=dev, dtype=torch.int32).broadcast_to(lead)
 
-    empty = any(d == 0 for d in lead)
-    dynamic = (
-        max_candidates in (None, "dynamic")
-        and mode in ("flexible", "adaptive")
-        and not empty
-    )
-    if max_candidates not in (None, "dynamic") and not isinstance(max_candidates, int):
-        raise ValueError(
-            f"max_candidates must be an int, None or 'dynamic', got {max_candidates!r}"
-        )
-    if center not in ("auto", "always"):
-        raise ValueError(f"unknown center {center!r}; expected 'auto' or 'always'")
-    if selection != "auto":
-        raise ValueError(f"unknown selection {selection!r}; the port has only 'auto'")
     if lowlat not in ("auto", "never"):
         raise ValueError(f"unknown lowlat {lowlat!r}; expected 'auto' or 'never'")
-    if taper not in fft_ops.TAPERS:
-        raise ValueError(f"unknown taper {taper!r}; expected one of {fft_ops.TAPERS}")
-    if backend not in fft_ops.BACKENDS:
-        raise ValueError(f"unknown FFT backend {backend!r}; expected one of {fft_ops.BACKENDS}")
-    if precision not in fft_ops.PRECISIONS:
-        raise ValueError(
-            f"unknown precision {precision!r}; expected one of {fft_ops.PRECISIONS}"
-        )
-    if not dynamic and not isinstance(max_candidates, int):
-        max_candidates = default_max_candidates(n_fft)
+    empty = any(d == 0 for d in lead)
+    dynamic, max_candidates = _check_options(
+        n_fft=n_fft, mode=mode, max_candidates=max_candidates, center=center,
+        selection=selection, taper=taper, backend=backend, precision=precision, empty=empty,
+    )
 
     # Non-dyadic sampling rates: the rigid wipe rounding at exact-half
     # boundaries follows the float64 reference via a host-computed table
     # (None for the dyadic rates).
     half_corr = None
     if mode in ("rigid", "adaptive") and not empty:
-        fs_host = (fs_orig.detach().cpu().double().numpy()
-                   if isinstance(fs_orig, torch.Tensor) else np.asarray(fs_orig, np.float64))
-        table = _rigid_corr_batch(fs_host, lead, n_fft)
+        table = _rigid_corr_batch(_host_rates(fs_orig), lead, n_fft)
         if table is not None:
             half_corr = _from_host(table, dev)
 
@@ -617,53 +670,112 @@ def analyze_epoch(
         if res is not None:
             return res
 
-    kwargs = dict(n_fft=n_fft, mode=mode, k=k, backend=backend, refine=refine,
-                  center=center, batch_chunk=batch_chunk, taper=taper,
-                  precision=precision)
-    if not dynamic:
-        return _analyze_epoch_impl(
-            samples, fs, lengths, half_corr, max_candidates=max_candidates, **kwargs
-        )
+    kwargs = dict(n_fft=n_fft, k=k, backend=backend, refine=refine, center=center,
+                  batch_chunk=batch_chunk, taper=taper, precision=precision)
 
-    # Adaptive mode: run the prominence pass alone and pay for the
-    # resolution fallback only when some window came back empty.
-    if mode == "adaptive":
-        flex = analyze_epoch(
+    def run(run_mode: str, mc) -> EpochResult:
+        return _analyze_epoch_impl(samples, fs, lengths, half_corr, mode=run_mode,
+                                   max_candidates=mc, **kwargs)
+
+    def prominence_pass() -> EpochResult:
+        # Adaptive mode's prominence pass is a flexible epoch of its own, so
+        # one full window takes the single-window route here too.
+        return analyze_epoch(
             samples, fs, n_fft=n_fft, mode="flexible", k=k, backend=backend,
             max_candidates=max_candidates, refine=refine, lengths=lengths,
             dtype=dtype, center=center, batch_chunk=batch_chunk, lowlat=lowlat,
             taper=taper, precision=precision,
         )
-        if not bool((flex.count == 0).any()):
-            return flex
-        rig = _analyze_epoch_impl(
-            samples, fs, lengths, half_corr, max_candidates=_DYNAMIC_FLOOR,
-            **{**kwargs, "mode": "rigid"},
-        )
-        use = flex.count > 0
-        usek = use[..., None]
-        return EpochResult(
-            count=torch.where(use, flex.count, rig.count),
-            idx=torch.where(usek, flex.idx, rig.idx),
-            freq=torch.where(usek, flex.freq, rig.freq),
-            mag=torch.where(usek, flex.mag, rig.mag),
-            prominence=torch.where(usek, flex.prominence, 0.0),
-            damping=torch.where(usek, flex.damping, 0.0),
-            q_factor=torch.where(usek, flex.q_factor, 0.0),
-            refined_freq=torch.where(usek, flex.refined_freq, rig.refined_freq),
-            n_candidates=flex.n_candidates,
-            n_required=flex.n_required,
-        )
 
     n_windows = 1
     for d in lead:
         n_windows *= d
-    return _run_dynamic(
-        lambda mc: _analyze_epoch_impl(
-            samples, fs, lengths, half_corr, max_candidates=mc, **kwargs
-        ),
-        n_fft=n_fft, mode=mode, n_windows=n_windows,
+    return _run_modes(run, mode=mode, dynamic=dynamic, max_candidates=max_candidates,
+                      n_fft=n_fft, n_windows=n_windows, prominence_pass=prominence_pass)
+
+
+def _check_options(*, n_fft: int, mode: str, max_candidates, center: str, selection: str,
+                   taper: str, backend: str, precision: str, empty: bool):
+    """Validate an epoch's options; returns ``(dynamic, max_candidates)``:
+    whether the dynamic budget runs, and the static budget when not."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+    if max_candidates not in (None, "dynamic") and not isinstance(max_candidates, int):
+        raise ValueError(
+            f"max_candidates must be an int, None or 'dynamic', got {max_candidates!r}"
+        )
+    if center not in ("auto", "always"):
+        raise ValueError(f"unknown center {center!r}; expected 'auto' or 'always'")
+    if selection != "auto":
+        raise ValueError(f"unknown selection {selection!r}; the port has only 'auto'")
+    if taper not in fft_ops.TAPERS:
+        raise ValueError(f"unknown taper {taper!r}; expected one of {fft_ops.TAPERS}")
+    if backend not in fft_ops.BACKENDS:
+        raise ValueError(f"unknown FFT backend {backend!r}; expected one of {fft_ops.BACKENDS}")
+    if precision not in fft_ops.PRECISIONS:
+        raise ValueError(
+            f"unknown precision {precision!r}; expected one of {fft_ops.PRECISIONS}"
+        )
+    dynamic = (
+        max_candidates in (None, "dynamic")
+        and mode in ("flexible", "adaptive")
+        and not empty
     )
+    if not dynamic and not isinstance(max_candidates, int):
+        max_candidates = default_max_candidates(n_fft)
+    return dynamic, max_candidates
+
+
+def _host_rates(fs) -> np.ndarray:
+    """The rates ``fs`` as host float64, the precision the rigid wipe table needs."""
+    if isinstance(fs, torch.Tensor):
+        return fs.detach().cpu().double().numpy()
+    return np.asarray(fs, np.float64)
+
+
+def _merge_adaptive(flex: EpochResult, rig: EpochResult) -> EpochResult:
+    """Adaptive mode's merge: the prominence pass where it found a peak, the
+    resolution pass's decisions where it found none."""
+    use = flex.count > 0
+    usek = use[..., None]
+    return EpochResult(
+        count=torch.where(use, flex.count, rig.count),
+        idx=torch.where(usek, flex.idx, rig.idx),
+        freq=torch.where(usek, flex.freq, rig.freq),
+        mag=torch.where(usek, flex.mag, rig.mag),
+        prominence=torch.where(usek, flex.prominence, 0.0),
+        damping=torch.where(usek, flex.damping, 0.0),
+        q_factor=torch.where(usek, flex.q_factor, 0.0),
+        refined_freq=torch.where(usek, flex.refined_freq, rig.refined_freq),
+        n_candidates=flex.n_candidates,
+        n_required=flex.n_required,
+    )
+
+
+def _run_modes(run, *, mode: str, dynamic: bool, max_candidates, n_fft: int,
+               n_windows: int, prominence_pass=None) -> EpochResult:
+    """An epoch under its budget: ``run(mode, mc)`` is one pass over the
+    whole epoch at budget ``mc``.
+
+    A static budget runs once.  The dynamic budget runs the host loop of
+    :func:`_run_dynamic`.  Adaptive mode runs the prominence pass alone
+    under the dynamic budget (``prominence_pass()`` when given, else
+    ``run("flexible", ...)`` in the loop) and pays for the resolution
+    fallback only when some window came back empty.
+    """
+    if not dynamic:
+        return run(mode, max_candidates)
+    if mode != "adaptive":
+        return _run_dynamic(lambda mc: run(mode, mc), n_fft=n_fft, mode=mode,
+                            n_windows=n_windows)
+    if prominence_pass is None:
+        flex = _run_dynamic(lambda mc: run("flexible", mc), n_fft=n_fft, mode="flexible",
+                            n_windows=n_windows)
+    else:
+        flex = prominence_pass()
+    if not bool((flex.count == 0).any()):
+        return flex
+    return _merge_adaptive(flex, run("rigid", _DYNAMIC_FLOOR))
 
 
 def _analyze_lowlat(samples, fs, *, n_fft: int, mode: str, k: int, refine: bool,
@@ -819,16 +931,18 @@ class PipelineConfig:
 class SpectralPipeline:
     """Stateful wrapper: epoch analysis plus per-call process/wall/RSS metrics.
 
-    A ``mesh`` (sharded epochs) is a later slice of the port and raises
-    until then.
+    With a ``mesh`` (:class:`apda_fft_tpu_torch.parallel.mesh.Mesh`) every
+    epoch runs data-parallel through
+    :func:`~apda_fft_tpu_torch.parallel.mesh.analyze_epoch_sharded`; the
+    config's ``device`` and ``lowlat`` then do not apply (the mesh names the
+    devices, and no shard takes the single-window route).
     """
 
     def __init__(self, config: PipelineConfig | None = None, mesh=None):
         from apda_fft_tpu_torch.utils.profiling import EpochMetrics
 
-        if mesh is not None:
-            raise NotImplementedError("sharded epochs (mesh=) are not ported yet")
         self.config = config or PipelineConfig()
+        self.mesh = mesh
         self._metrics = EpochMetrics()
         self.last_metrics: dict[str, float] = {}
 
@@ -836,13 +950,24 @@ class SpectralPipeline:
         cfg = self.config
         last_dynamic_stats().clear()  # don't inherit a previous call's stats
         with self._metrics.measure():
-            result = analyze_epoch(
-                samples, fs, n_fft=n_fft, mode=cfg.mode, k=cfg.k, backend=cfg.backend,
-                max_candidates=cfg.max_candidates, refine=cfg.refine, lengths=lengths,
-                dtype=cfg.dtype, center=cfg.center, selection=cfg.selection or "auto",
-                lowlat=cfg.lowlat, taper=cfg.taper, precision=cfg.precision,
-                device=cfg.device,
-            )
+            if self.mesh is not None:
+                from apda_fft_tpu_torch.parallel.mesh import analyze_epoch_sharded
+
+                result = analyze_epoch_sharded(
+                    samples, fs, mesh=self.mesh, lengths=lengths, n_fft=n_fft,
+                    mode=cfg.mode, k=cfg.k, backend=cfg.backend,
+                    max_candidates=cfg.max_candidates, refine=cfg.refine, dtype=cfg.dtype,
+                    center=cfg.center, selection=cfg.selection or "auto", taper=cfg.taper,
+                    precision=cfg.precision,
+                )
+            else:
+                result = analyze_epoch(
+                    samples, fs, n_fft=n_fft, mode=cfg.mode, k=cfg.k, backend=cfg.backend,
+                    max_candidates=cfg.max_candidates, refine=cfg.refine, lengths=lengths,
+                    dtype=cfg.dtype, center=cfg.center, selection=cfg.selection or "auto",
+                    lowlat=cfg.lowlat, taper=cfg.taper, precision=cfg.precision,
+                    device=cfg.device,
+                )
         self.last_metrics = {**self._metrics.last, **last_dynamic_stats()}
         return result
 

@@ -10,7 +10,8 @@ of two, DFT, zero the DC bin.
   ``_fourstep_pretranspose`` as float32 ``torch.matmul`` calls against
   float64-built DFT and twiddle tables.  The products run in IEEE float32:
   TF32 would keep about three decimal digits and break the 1e-6 spectrum
-  contract, so the global TF32 setting is overridden for the call.
+  contract, so the global TF32 setting is overridden for the call.  On the
+  CPU they run on one intra-op thread (:func:`_one_cpu_thread`).
 * ``"xla"`` - ``torch.fft.rfft``.
 * ``"pallas"`` - the fused front-end kernel (``ops/fft_cuda.py``, the
   counterpart of the JAX package's ``fft_pallas.py``): one hand-written
@@ -243,6 +244,35 @@ def ieee_fp32_matmul():
                     k.fp32_precision = v
 
 
+_cpu_thread_lock = threading.RLock()
+
+
+@contextlib.contextmanager
+def _one_cpu_thread(x: torch.Tensor):
+    """Run a transform of ``x`` on the CPU on the calling thread alone
+    (``torch.set_num_threads(1)`` for the call, then the caller's count);
+    a CUDA tensor's transform is left as it is.
+
+    On the host CPU of an NVIDIA H100 machine, the front end at 8 intra-op
+    threads returned 4 of 260 epochs of 256 windows with one thread's block
+    of 32 windows off by about 2.2e-4 relative (oneMKL 2024.0
+    ``SGEMM_BATCH``), where one thread never did (``chip_profile.py
+    --cpu-probe``).  The guard gives up the CPU transform's other threads
+    for that.  ``torch.set_num_threads`` also sets the count that threads
+    starting parallel work take up, so concurrent guards take turns.
+    """
+    if x.device.type != "cpu":
+        yield
+        return
+    with _cpu_thread_lock:
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            yield
+        finally:
+            torch.set_num_threads(threads)
+
+
 def _fourstep_pretranspose(x: torch.Tensor, n_out: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Steps 1-3 of the four-step: ``(dr, di)`` in ``[..., n2 (k2), k1_out]``.
 
@@ -293,13 +323,13 @@ def fft_matmul_real(x: torch.Tensor, half: bool = False) -> tuple[torch.Tensor, 
     cross spectra consume): step 3 then keeps only the columns those bins
     need.  N up to ``_DIRECT_DFT_MAX`` takes one direct table product.  The
     products run in IEEE float32 (``ieee_fp32_matmul``), against tables built
-    in float64.
+    in float64, and on the CPU on one thread (:func:`_one_cpu_thread`).
     """
     n = x.shape[-1]
     if not is_pow2(n):
         raise ValueError(f"four-step FFT requires power-of-two length, got {n}")
     n_out = n // 2 if half and n >= 2 else n
-    with ieee_fp32_matmul():
+    with ieee_fp32_matmul(), _one_cpu_thread(x):
         if n <= _DIRECT_DFT_MAX:
             return _direct_dft_real(x, n_out)
         dr, di = _fourstep_pretranspose(x, n_out)
@@ -345,7 +375,7 @@ def rfft_packed_matmul(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     # z[m] = x[2m] + i*x[2m+1], m = m2 + n2*m1.  u[m1, j] = x[j + 2*n2*m1]
     # (a free view): column j = 2*m2 + c holds component c of z[m2 + n2*m1].
     u = x.reshape(*lead, n1, 2 * n2)
-    with ieee_fp32_matmul():
+    with ieee_fp32_matmul(), _one_cpu_thread(x):
         # Step 1: DFT over m1 for all interleaved columns at once.
         p = torch.matmul(c1, u)
         q = torch.matmul(s1, u)
@@ -414,7 +444,7 @@ def halfspec_magnitudes(
     if backend == "xla":
         mags = torch.fft.rfft(x)[..., : n // 2].abs().to(x.dtype)
     elif backend == "matmul":
-        with ieee_fp32_matmul():
+        with ieee_fp32_matmul(), _one_cpu_thread(x):
             if n <= _DIRECT_DFT_MAX:
                 re, im = _direct_dft_real(x, n // 2)
                 mags = torch.sqrt(re**2 + im**2)

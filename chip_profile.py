@@ -2,6 +2,7 @@
 
     python3 chip_profile.py            # items 1-3 below, ~2 min on an H100
     python3 chip_profile.py --skip-cpu-probe
+    python3 chip_profile.py --cpu-probe     # item 3 only, ~1 min
     python3 chip_profile.py --block-sizes   # item 4 only
     python3 chip_profile.py --sass OTHER_TREE   # item 5 only
     python3 chip_profile.py --paths         # item 6 only, ~1 min
@@ -16,11 +17,12 @@
    slot-wise form (forced through ``_UNROLL_MAX``) on the select+scan
    kernel's outputs for the noisy spectra at M in {2, 4, 8, 12, 128}:
    both must give the same result; CUDA-event median of 20, A-B-B-A;
-3. CPU probe: the port's CPU ``analyze_epoch`` on 256 clean windows at the
-   default intra-op thread count against one thread, repeated in this
+3. CPU probe: the port's CPU ``analyze_epoch`` on 256 clean windows, and
+   its four-step without the one-thread guard of ``ops/fft.py``, each at
+   the default intra-op thread count against one thread, repeated in this
    process and in fresh processes that first run an epoch on the card
    (the setting in which ``chip_smoke.py``'s CPU reference once went
-   wrong); a last child runs the CPU front end with oneDNN's and MKL's
+   wrong); a last child runs the unguarded four-step with oneDNN's and MKL's
    verbose logs on and reports which GEMM paths it took;
 4. block sizes: the profiler's device time of the single-window kernels
    at 256, 512 and 1024 threads (pinned in ``latency_cuda._THREADS``) on
@@ -63,7 +65,7 @@ import torch
 import chip_smoke
 from apda_fft_tpu_torch.models import batching, pipeline, streaming
 from apda_fft_tpu_torch.ops import detector_cuda, latency_cuda, peaks_prominence
-from apda_fft_tpu_torch.ops.fft import halfspec_magnitudes
+from apda_fft_tpu_torch.ops import fft as fft_ops
 from apda_fft_tpu_torch.utils import kernels
 
 FS, N_FFT, BATCH = chip_smoke.FS, chip_smoke.N_FFT, chip_smoke.BATCH
@@ -171,26 +173,42 @@ def finalize_forms(noisy: np.ndarray, card: str) -> None:
             f"CUDA-event median of {chip_smoke.TIMING_RUNS}, A-B-B-A; {card})")
 
 
-def cpu_mismatch(x: np.ndarray) -> str:
-    """Run the CPU epoch at the default thread count, then at one thread;
-    describe the rows whose magnitudes differ by more than 1e-6 relative."""
-    xc = torch.from_numpy(x)
-    many = pipeline.analyze_epoch(xc, FS, n_fft=N_FFT, mode="flexible", max_candidates=2)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        one = pipeline.analyze_epoch(xc, FS, n_fft=N_FFT, mode="flexible", max_candidates=2)
-    finally:
-        torch.set_num_threads(threads)
-    rel = ((many.mag - one.mag).abs().amax(-1) / one.mag.abs().amax(-1)).numpy()
+def rows_off(many: torch.Tensor, one: torch.Tensor) -> str:
+    """The rows of ``many`` more than 1e-6 relative off ``one``'s."""
+    rel = ((many - one).abs().amax(-1) / one.abs().amax(-1)).numpy()
     bad = np.flatnonzero(rel > 1e-6)
     if bad.size == 0:
         return "equal"
     return f"{bad.size} rows off (rows {bad.min()}..{bad.max()}, max rel {rel.max():.3g})"
 
 
+def cpu_mismatch(x: np.ndarray) -> tuple[str, str]:
+    """The port's CPU epoch (its transform on one thread,
+    ``ops.fft._one_cpu_thread``) and the four-step without that guard, each
+    at the default thread count against one thread: the rows off, each."""
+    xc = torch.from_numpy(x)
+    centred = xc - xc.mean(dim=-1, keepdim=True)
+
+    def run():
+        epoch_mag = pipeline.analyze_epoch(xc, FS, n_fft=N_FFT, mode="flexible",
+                                           max_candidates=2).mag
+        with fft_ops.ieee_fp32_matmul():
+            raw = fft_ops._fourstep_magnitudes(centred, N_FFT // 2)
+        return epoch_mag, raw
+
+    many = run()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one = run()
+    finally:
+        torch.set_num_threads(threads)
+    return rows_off(many[0], one[0]), rows_off(many[1], one[1])
+
+
 def cpu_probe(corpora: dict[str, np.ndarray], card: str) -> None:
     x = corpora["clean"][:256]
+    log(f"[cpu probe] {host_identity()}")
     log(f"[cpu probe] {torch.get_num_threads()} threads, cpu capability "
         f"{torch.backends.cpu.get_cpu_capability()}, mkldnn matmul fp32_precision "
         f"{torch.backends.mkldnn.matmul.fp32_precision!r}, float32_matmul_precision "
@@ -201,25 +219,40 @@ def cpu_probe(corpora: dict[str, np.ndarray], card: str) -> None:
         epoch(xs)
         torch.cuda.synchronize()
         found.append(cpu_mismatch(x))
-    log(f"[cpu probe] in process, 20 runs after a card epoch each: "
-        f"{sum(f != 'equal' for f in found)} off {[f for f in found if f != 'equal']}")
     children = []
     for _ in range(6):
         out = subprocess.run([sys.executable, __file__, "--cpu-probe-child"],
                              capture_output=True, text=True, check=True, timeout=300)
-        children.append(out.stdout.strip().splitlines()[-1])
-    log(f"[cpu probe] fresh processes, first CPU epoch after a card epoch: "
-        f"{sum(c != 'equal' for c in children)} of 6 off {children}")
+        children.append(tuple(out.stdout.strip().splitlines()[-1].split(" | ")))
+    for where, runs in (("in process, 20 runs after a card epoch each", found),
+                        ("fresh processes, first CPU epoch after a card epoch", children)):
+        for i, part in enumerate(("port's epoch", "unguarded four-step")):
+            off = [r[i] for r in runs if r[i] != "equal"]
+            log(f"[cpu probe] {where}: {part} {len(off)} of {len(runs)} off {off}")
     env = dict(os.environ, ONEDNN_VERBOSE="1", MKL_VERBOSE="1")
     out = subprocess.run([sys.executable, __file__, "--cpu-gemm-child"], env=env,
                          capture_output=True, text=True, check=True, timeout=300)
     lines = out.stdout.splitlines()
     onednn = [ln for ln in lines if ln.startswith("onednn_verbose") and ",exec," in ln]
     mkl = [ln for ln in lines if ln.startswith("MKL_VERBOSE")]
-    log(f"[cpu probe] front end at {torch.get_num_threads()} threads: {len(onednn)} oneDNN "
+    log(f"[cpu probe] unguarded four-step at {torch.get_num_threads()} threads: "
+        f"{len(onednn)} oneDNN "
         f"primitives, {len(mkl)} MKL calls; {card}")
     for ln in (onednn[:3] + mkl[:3]):
         log(f"[cpu probe]   {ln[:200]}")
+
+
+def host_identity() -> str:
+    """The host's name, CPU model and microcode, and the card's UUID."""
+    cpu = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            cpu.setdefault(key.strip(), value.strip())
+    uuid = subprocess.run(["nvidia-smi", "--query-gpu=uuid", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    return (f"host {os.uname().nodename}, {cpu.get('model name')}, microcode "
+            f"{cpu.get('microcode')}, card {uuid}")
 
 
 def block_sizes(noisy: np.ndarray, card: str) -> None:
@@ -347,6 +380,7 @@ def sass_compare(other: str, card: str) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--skip-cpu-probe", action="store_true")
+    parser.add_argument("--cpu-probe", action="store_true", help="only run the CPU probe (item 3)")
     parser.add_argument("--block-sizes", action="store_true",
                         help="only time the kernels' block sizes (item 4)")
     parser.add_argument("--paths", action="store_true",
@@ -358,12 +392,14 @@ def main() -> int:
     parser.add_argument("--cpu-gemm-child", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.cpu_gemm_child:
-        halfspec_magnitudes(torch.from_numpy(chip_smoke.clean_batch(256)))
+        with fft_ops.ieee_fp32_matmul():
+            fft_ops._fourstep_magnitudes(torch.from_numpy(chip_smoke.clean_batch(256)),
+                                         N_FFT // 2)
         return 0
     if args.cpu_probe_child:
         epoch(torch.from_numpy(chip_smoke.clean_batch(BATCH)).cuda())
         torch.cuda.synchronize()
-        print(cpu_mismatch(chip_smoke.clean_batch(256)))
+        print(" | ".join(cpu_mismatch(chip_smoke.clean_batch(256))))
         return 0
     card = chip_smoke.phase_device()
     if args.sass:
@@ -377,6 +413,10 @@ def main() -> int:
     corpora = {"clean": chip_smoke.clean_batch(BATCH), "noisy": chip_smoke.noisy_batch(BATCH)}
     if args.block_sizes:
         block_sizes(corpora["noisy"], card)
+        log(card)
+        return 0
+    if args.cpu_probe:
+        cpu_probe(corpora, card)
         log(card)
         return 0
     profile(corpora, card)

@@ -168,6 +168,75 @@ def test_halfspec_multithreaded_cpu_matches_one_thread():
         torch.set_num_threads(threads)
 
 
+@pytest.mark.parametrize("transform", [
+    lambda x: tfft.halfspec_magnitudes(x),
+    lambda x: tfft.fft_matmul_real(x, half=True),
+    tfft.rfft_packed_matmul,
+], ids=["halfspec", "complex", "packed"])
+def test_cpu_transforms_run_on_one_intra_op_thread(monkeypatch, transform):
+    """Every product of a CPU four-step runs on one intra-op thread, and the
+    caller's thread count comes back afterwards (``_one_cpu_thread``: an
+    8-thread front end once returned one thread's block of windows about
+    2.2e-4 off)."""
+    seen = []
+    matmul = torch.matmul
+
+    def counting_matmul(*args, **kwargs):
+        seen.append(torch.get_num_threads())
+        return matmul(*args, **kwargs)
+
+    x = torch.from_numpy(_windows(4, 4096, seed=6))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        monkeypatch.setattr(torch, "matmul", counting_matmul)
+        transform(x)
+        assert seen and set(seen) == {1}, seen
+        assert torch.get_num_threads() == 4
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_one_cpu_thread_guard_thread_stress(monkeypatch):
+    """More threads than cores run CPU transforms at once: every product
+    runs on one thread; once all are done, the caller's count is back, also
+    for a thread that starts its first parallel work afterwards."""
+    seen = []
+    matmul = torch.matmul
+
+    def counting_matmul(*args, **kwargs):
+        seen.append(torch.get_num_threads())
+        return matmul(*args, **kwargs)
+
+    x = torch.from_numpy(_windows(4, 1024, seed=7))
+
+    def work():
+        for _ in range(50):
+            tfft.halfspec_magnitudes(x)
+
+    threads_before, interval = torch.get_num_threads(), sys.getswitchinterval()
+    try:
+        torch.set_num_threads(3)
+        monkeypatch.setattr(torch, "matmul", counting_matmul)
+        sys.setswitchinterval(1e-6)
+        workers = [threading.Thread(target=work) for _ in range(2 * (os.cpu_count() or 4))]
+        for t in workers:
+            t.start()
+        for t in workers:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in workers)
+        assert len(seen) == 3 * 50 * len(workers) and set(seen) == {1}
+        assert torch.get_num_threads() == 3
+        later = []
+        fresh = threading.Thread(target=lambda: later.append(torch.get_num_threads()))
+        fresh.start()
+        fresh.join(timeout=60)
+        assert later == [3]
+    finally:
+        sys.setswitchinterval(interval)
+        torch.set_num_threads(threads_before)
+
+
 @pytest.mark.parametrize("with_lengths", [False, True])
 def test_center_and_pad_matches_jax(with_lengths):
     x = _windows(5, 700, seed=2) * 2.0 + 3.0

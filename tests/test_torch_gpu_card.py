@@ -395,3 +395,134 @@ def test_gateway_on_the_card_matches_the_cpu(tmp_path):
         side.svc.stop()
     gp.assert_same_surface(surfaces[0], surfaces[1], "card vs CPU")
     assert any("[FDD]" in line for line in surfaces[0]["history"])
+
+
+def _card_mesh(axes=("data",), shape=None):
+    """Four shards: the visible cards when there are four, else four logical
+    shards of the first card."""
+    from apda_fft_tpu_torch.parallel import mesh as tmesh
+
+    cards = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    devices = cards[:4] if len(cards) >= 4 else ["cuda:0"] * 4
+    return tmesh.make_mesh(4, axes, shape=shape, devices=devices)
+
+
+@pytest.mark.gpu
+def test_sharded_epoch_on_the_card_matches_one_device():
+    """``analyze_epoch_sharded`` on a 4-shard mesh of the card: B1 launches
+    on every shard, and decisions, fields (``ROADMAP.md``'s "held against
+    the reference" rule) and ``last_dynamic_stats()`` equal the
+    single-device epoch's; noisy epochs learn, then run, the two-tier split."""
+    _need_card()
+    from apda_fft_tpu_torch.parallel import mesh as tmesh
+
+    mesh = _card_mesh()
+    t = np.arange(2048) / FS
+    epochs = []
+    for seed in (11, 12):  # tests/test_torch_parallel.py's two-tier corpus
+        rng = np.random.default_rng(seed)
+        x = 2.0 * rng.standard_normal((256, 2048))
+        for f, a, zeta in ((12.3, 0.9, 0.01), (47.7, 0.7, 0.008), (88.4, 0.55, 0.015)):
+            phase = rng.uniform(0, 2 * np.pi, size=(256, 1))
+            x += a * np.sin(2 * np.pi * f * t + phase) * np.exp(-zeta * 2 * np.pi * f * t)
+        epochs.append(x.astype(np.float32))
+    runs = {}
+    for side in ("mesh", "single"):
+        tpipe.reset_dynamic_state()
+        runs[side] = []
+        for x in epochs:
+            before = detector_cuda.launches
+            if side == "mesh":
+                res = tmesh.analyze_epoch_sharded(x, FS, mesh=mesh, refine=True)
+                assert detector_cuda.launches - before >= 4
+                assert res.count.device == torch.device("cuda:0")
+            else:
+                res = tpipe.analyze_epoch(x, FS, refine=True, batch_chunk=0, lowlat="never")
+            runs[side].append((res, dict(tpipe.last_dynamic_stats())))
+    assert runs["mesh"][1][1]["tier"] is not None, runs["mesh"][1][1]
+    for (one, s_mesh), (want, s_single) in zip(runs["mesh"], runs["single"]):
+        assert s_mesh == s_single, (s_mesh, s_single)
+        for name in DECISIONS:
+            np.testing.assert_array_equal(getattr(one, name).cpu().numpy(),
+                                          getattr(want, name).cpu().numpy(), err_msg=name)
+        for name, step in (("freq", 1e-4), ("mag", 1e-4), ("damping", 1e-2),
+                           ("q_factor", 1e-2), ("prominence", 0.0), ("refined_freq", 0.0)):
+            np.testing.assert_allclose(getattr(one, name).cpu().numpy(),
+                                       getattr(want, name).cpu().numpy(), rtol=1e-5,
+                                       atol=1.01 * step or 1e-6, err_msg=name)
+
+
+@pytest.mark.gpu
+def test_distributed_fft_on_the_card_matches_float64():
+    """The sequence-parallel FFT on a (2, 2) mesh of the card: <= 1e-6
+    normwise against float64 numpy.fft at N=4096 and N=65536."""
+    _need_card()
+    from apda_fft_tpu_torch.ops.fft import center_and_pad
+    from apda_fft_tpu_torch.parallel.distributed_fft import distributed_halfspec_magnitudes
+
+    mesh = _card_mesh(("data", "seq"), (2, 2))
+    for n, b in ((4096, 64), (65536, 4)):
+        x = np.stack([_window(n, FS, seed=s) for s in range(b)]).astype(np.float32)
+        w = center_and_pad(torch.from_numpy(x).cuda(), n)
+        got = distributed_halfspec_magnitudes(w, mesh).cpu().numpy()
+        ref = np.abs(np.fft.fft(w.cpu().numpy().astype(np.float64), axis=-1))[:, : n // 2]
+        ref[:, 0] = 0.0
+        assert np.linalg.norm(got - ref) / np.linalg.norm(ref) <= 1e-6, n
+
+
+@pytest.mark.gpu
+def test_doctor_passes_on_the_card(capsys):
+    _need_card()
+    import json
+
+    from apda_fft_tpu_torch.__main__ import main
+
+    assert main(["doctor", "--json"]) == 0
+    rep = json.loads(capsys.readouterr().out.strip())
+    assert rep["ok"] is True and all(c["ok"] for c in rep["checks"])
+
+
+@pytest.mark.gpu
+def test_card_results_gathered_on_cpu_shards_match():
+    """Copies from the card to CPU shards finish before the host reads
+    them: the power iteration on a mesh of the card gives the same bits
+    gathered on the CPU as on the card, and ``fdd`` so gathered decides as
+    the CPU run does; ``correlation_blocks_sharded``,
+    ``analyze_epoch_sharded`` and ``distributed_halfspec_magnitudes`` on a
+    CPU mesh give the same bits for a tensor on the card as for its CPU
+    copy."""
+    _need_card()
+    from apda_fft_tpu_torch.parallel import mesh as tmesh
+    from apda_fft_tpu_torch.parallel.distributed_fft import distributed_halfspec_magnitudes
+
+    x, _ = _modal_array(8)
+    card = _card_mesh()
+    _, gr, gi = modal.csd_matrix(x, FS, 1024, device="cpu")
+    on_cpu = modal._sv_spectra_sharded(gr, gi, card, "data", modal._POWER_ITERS)
+    on_card = modal._sv_spectra_sharded(gr.cuda(), gi.cuda(), card, "data", modal._POWER_ITERS)
+    for a, b in zip(on_cpu, on_card):
+        assert a.device.type == "cpu"
+        np.testing.assert_array_equal(a.numpy(), b.cpu().numpy())
+    got = modal.fdd(x, FS, 1024, mesh=card, device="cpu")
+    want = modal.fdd(x, FS, 1024, device="cpu")
+    for f in ("count", "idx", "freq"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
+    # test_fdd_and_ssi_on_the_card_match_the_cpu's card-against-CPU bound.
+    assert np.abs(got.sv1 - want.sv1).max() <= 5e-6 * want.sv1.max()
+
+    xc = torch.from_numpy(x.astype(np.float32))
+    seq = tmesh.make_mesh(4, ("seq",), devices=["cpu"] * 4)
+    np.testing.assert_array_equal(tmesh.correlation_blocks_sharded(xc.cuda(), 40, seq),
+                                  tmesh.correlation_blocks_sharded(xc, 40, seq))
+
+    data = tmesh.make_mesh(4, devices=["cpu"] * 4)
+    w = xc.reshape(-1, 4096)  # 32 windows of 4096 samples
+    got = tmesh.analyze_epoch_sharded(w.cuda(), FS, mesh=data, max_candidates=16)
+    want = tmesh.analyze_epoch_sharded(w, FS, mesh=data, max_candidates=16)
+    for name, a, b in zip(got._fields, got, want):
+        assert a.device.type == "cpu", name
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=name)
+
+    grid = tmesh.make_mesh(4, ("data", "seq"), (2, 2), devices=["cpu"] * 4)
+    np.testing.assert_array_equal(distributed_halfspec_magnitudes(w.cuda(), grid).numpy(),
+                                  distributed_halfspec_magnitudes(w, grid).numpy())

@@ -465,9 +465,17 @@ def test_fdd_validation_matches_jax():
 
 
 def test_fdd_leaves_out_the_sharded_run_and_other_selections():
+    """The sharded run (``mesh=``) is ported now and decides as the
+    single-device run (``tests/test_torch_parallel.py`` holds it against
+    the JAX package's); other selections are still left out."""
+    from apda_fft_tpu_torch.parallel.mesh import make_mesh
+
     x = _fuzz_case(0)[0]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tm.fdd(x, 100.0, 512, mesh=object(), device="cpu")
+    one = tm.fdd(x, 100.0, 512, device="cpu")
+    sharded = tm.fdd(x, 100.0, 512, mesh=make_mesh(4, devices=["cpu"] * 4))
+    assert sharded.count == one.count
+    np.testing.assert_array_equal(sharded.idx, one.idx)
+    np.testing.assert_array_equal(sharded.freq, one.freq)
     with pytest.raises(ValueError, match="auto"):
         tm.fdd(x, 100.0, 512, selection="top_k", device="cpu")
 

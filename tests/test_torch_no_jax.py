@@ -15,6 +15,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = """
 import sys
 import apda_fft_tpu_torch
+import apda_fft_tpu_torch.__main__
 import apda_fft_tpu_torch.gateway
 import apda_fft_tpu_torch.gateway.__main__
 import apda_fft_tpu_torch.gateway.async_upload
@@ -42,6 +43,10 @@ import apda_fft_tpu_torch.ops.latency_cuda
 import apda_fft_tpu_torch.ops.resample
 import apda_fft_tpu_torch.ops.ringdown
 import apda_fft_tpu_torch.ops.srs
+import apda_fft_tpu_torch.parallel
+import apda_fft_tpu_torch.parallel.distributed_fft
+import apda_fft_tpu_torch.parallel.dryrun
+import apda_fft_tpu_torch.parallel.mesh
 import apda_fft_tpu_torch.utils.kernels
 import apda_fft_tpu_torch.utils.profiling
 import apda_fft_tpu_torch.utils.synthetic

@@ -251,8 +251,17 @@ def test_spectral_pipeline_and_metrics():
     for key in ("process_time", "wall_time", "percentage_cpu", "memrss", "candidate_budget"):
         assert key in pipe.last_metrics, key
     assert tpipe.PipelineConfig.from_gateway_flag(False).mode == "rigid"
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tpipe.SpectralPipeline(mesh=object())
+    # A mesh runs the epoch sharded (tests/test_torch_parallel.py), with
+    # the same result and metrics.
+    from apda_fft_tpu_torch.parallel.mesh import make_mesh
+
+    meshed = tpipe.SpectralPipeline(tpipe.PipelineConfig(refine=True),
+                                    mesh=make_mesh(2, devices=["cpu"] * 2))
+    on_mesh = meshed(x, FS)
+    for name in res._fields:
+        np.testing.assert_allclose(getattr(on_mesh, name).numpy(), getattr(res, name).numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+    assert meshed.last_metrics["candidate_budget"] == pipe.last_metrics["candidate_budget"]
     welch = pipe.welch(x, FS, window=256)
     assert welch.count.shape == (4,)
     assert "wall_time" in pipe.last_metrics and "candidate_budget" not in pipe.last_metrics
