@@ -832,8 +832,9 @@ def cmd_doctor(args) -> int:
     * ``kernels`` (new) builds or loads the five hand-written kernels (four
       libraries) through ``utils/kernels.py`` and names the build
       directory; a failed build is a failed check;
-    * ``x64`` and ``compile_cache`` are "not applicable": the port has no
-      global float64 switch and compiles no XLA programs;
+    * ``x64`` is "not applicable": the port has no global float64 switch;
+    * ``compile_cache`` names the build cache in effect
+      (``utils/compilecache.py``), or the package's build directory;
     * the numerics checks run on the card, and fail (with the reason) when
       there is none: the port does not fall back to the CPU.
     """
@@ -843,7 +844,7 @@ def cmd_doctor(args) -> int:
 
     from apda_fft_tpu_torch.io import native
     from apda_fft_tpu_torch.ops import detector_cuda, fft_cuda, latency_cuda
-    from apda_fft_tpu_torch.utils import kernels
+    from apda_fft_tpu_torch.utils import compilecache, kernels
 
     checks: list[tuple[str, bool, str]] = []
 
@@ -875,8 +876,10 @@ def cmd_doctor(args) -> int:
                        "loaded" if lib is not None else
                        "unavailable - NumPy fallbacks active (slower ingest)"))
 
-    checks.append(("compile_cache", True, "not applicable: the port compiles no XLA "
-                                          "programs (kernels are built once, see kernels)"))
+    cache_dir = compilecache.enabled_dir()
+    checks.append(("compile_cache", True,
+                   cache_dir or f"not enabled: builds in {kernels.BUILD_DIR} (opt-in: gateway "
+                                "compilation_cache_dir / enable_compilation_cache)"))
 
     if not card:
         for name in ("fft_accuracy", "detector_flexible", "detector_rigid"):

@@ -33,8 +33,9 @@ queues, trackers, egress) is host code, as in the JAX package.
 Kept as the JAX gateway has them, for parity: the kept-fd generation
 advances on every sync from any sensor (``_reap_idle_fds``), and the
 severity batch is padded to a power-of-two row count (``_vibration_severity``).
-``GatewayConfig.compilation_cache_dir`` is accepted and ignored: the port
-has no compilation cache.
+``GatewayConfig.compilation_cache_dir`` enables the port's build cache
+(``utils/compilecache.py``): the kernels and the native ingest are built
+into and loaded from that directory.
 """
 
 from __future__ import annotations
@@ -197,8 +198,11 @@ class GatewayService:
     # -- lifecycle -----------------------------------------------------------
 
     def start(self) -> None:
-        # ``config.compilation_cache_dir`` names the JAX gateway's compile
-        # cache; the port has none, so the key is accepted and unused.
+        if self.config.compilation_cache_dir:
+            from apda_fft_tpu_torch.utils.compilecache import enable_compilation_cache
+
+            path = enable_compilation_cache(self.config.compilation_cache_dir)
+            self.history(f"\t[build] persistent kernel build cache at {path}\n")
         self.transport.start(self.history)
         self.history(f"--- Gateway Start: {self.clock()} ---\n\n")
         self.devices.reset()

@@ -18,6 +18,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 
 import numpy as np
 
@@ -25,7 +26,11 @@ from apda_fft_tpu_torch.io import halffloat
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG_DIR, "csrc", "host", "apda_io.cc")
+#: Where the library is built and loaded from (``utils/compilecache.py``
+#: points it at a cache directory).
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+#: A build that took less is loaded and then removed from ``_BUILD_DIR``.
+MIN_PERSIST_SECS = 0.0
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -71,9 +76,14 @@ def load() -> ctypes.CDLL | None:
             return _lib
         try:
             path = _library_path()
+            built_in = None
             if not os.path.exists(path):
+                t0 = time.perf_counter()
                 _build(path)
+                built_in = time.perf_counter() - t0
             lib = ctypes.CDLL(path)
+            if built_in is not None and built_in < MIN_PERSIST_SECS:
+                os.unlink(path)  # the mapping stays valid
             lib.apda_decode_half.restype = ctypes.c_long
             lib.apda_decode_half.argtypes = [
                 ctypes.c_char_p, ctypes.c_long, ctypes.c_double,

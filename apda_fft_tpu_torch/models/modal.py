@@ -44,6 +44,7 @@ from apda_fft_tpu_torch.models.streaming import (
 )
 from apda_fft_tpu_torch.ops import fft as fft_ops
 from apda_fft_tpu_torch.ops.fft import ieee_fp32_matmul
+from apda_fft_tpu_torch.ops.peaks_prominence import check_selection
 from apda_fft_tpu_torch.ops.stats import div_exact
 
 #: Power-iteration steps for the per-frequency dominant eigenpair: the
@@ -425,8 +426,8 @@ def fdd(
 
     ``efdd=True`` fills ``damping_efdd`` with the enhanced-FDD estimate;
     ``harmonics=True`` fills ``kurtosis`` with :func:`harmonic_indicator`.
-    ``selection`` takes only ``"auto"``, the port's one order-exact
-    selection.
+    ``selection`` takes the JAX package's names, all one order-exact
+    selection in the port (``ops.peaks_prominence.SELECTIONS``).
 
     ``mesh`` (a :class:`~apda_fft_tpu_torch.parallel.mesh.Mesh`) splits the
     per-bin power iteration along the FREQUENCY axis over ``mesh_axis``
@@ -434,8 +435,7 @@ def fdd(
     and the detector run on the mesh's first device (or ``device``).
     Decisions are those of the single-device run.
     """
-    if selection != "auto":
-        raise ValueError(f"unknown selection {selection!r}; the port has only 'auto'")
+    check_selection(selection)
     if mesh is not None and device is None:
         device = mesh.first_device
     records = _pipeline._placed(records, device, dtype)

@@ -38,6 +38,7 @@ import torch
 from apda_fft_tpu_torch.models.results import EpochResult
 from apda_fft_tpu_torch.ops import fft as fft_ops
 from apda_fft_tpu_torch.ops.detector_cuda import prominence_peaks_fused
+from apda_fft_tpu_torch.ops.peaks_prominence import check_selection
 from apda_fft_tpu_torch.ops.peaks_resolution import (
     resolution_peaks,
     rigid_half_corrections,
@@ -517,16 +518,20 @@ def detect_from_mags(
     k: int | None = None,
     max_candidates: int | str | None = None,
     refine: bool = True,
+    selection: str = "auto",
 ) -> EpochResult:
     """Detector + finalize stage on precomputed half-spectrum magnitudes
     ``[B, H]`` (``|FFT|[:, :n_fft//2]``, DC zeroed), with the same dynamic
     budget as :func:`analyze_epoch` (shared tables); an int pins a static
-    budget.  A tensor runs where it lies, an array on the card."""
+    budget.  A tensor runs where it lies, an array on the card.
+    ``selection`` takes the JAX package's names, all one order
+    (``ops.peaks_prominence.SELECTIONS``)."""
     mags = _placed(mags, None)
     if mags.dim() != 2:
         raise ValueError(f"mags must be [B, H], got shape {tuple(mags.shape)}")
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+    check_selection(selection)
     if k is None:
         k = default_k(mode)
     fs_flat = torch.as_tensor(fs, dtype=mags.dtype, device=mags.device).broadcast_to(
@@ -595,7 +600,10 @@ def analyze_epoch(
         only).
       center: "auto" skips the median when it can only affect the zeroed DC
         bin (full windows take a mean detrend); "always" forces it.
-      selection: only ``"auto"``, the one order-exact candidate selection.
+      selection: the JAX package's candidate-selection names (``"auto"``,
+        ``"auto_spmd"``, ``"argmax"``, ``"topk"``, ``"sort"``); the JAX
+        package holds them equal, and the port runs each as its one
+        order-exact selection.
       batch_chunk: epochs larger than this run in chunks of this many
         windows (0 disables).
       lowlat: ``"auto"`` routes an epoch of one full float32 window on a
@@ -604,13 +612,16 @@ def analyze_epoch(
         ``"never"`` always runs the batched path.  Decisions are the same.
       taper: "none" (reference rectangular window), "hann", "hamming" or
         "blackman", amplitude-normalized, applied after centering.
-      precision: "highest" (IEEE float32 spectra, the 1e-6 contract);
-        "fast" is not ported yet and raises.
+      precision: "highest" (IEEE float32 spectra, the 1e-6 contract) or
+        "fast" (matmul backend only: TF32 products on CUDA, normwise error
+        within ``ops.fft.FAST_NORMWISE_BOUND``; decisions near thresholds
+        may differ; never the single-window route).
 
     The ``"matmul"`` front end switches PyTorch's process-wide float32
     matmul precision to IEEE (no TF32) while it runs and then restores it
     (``ops.fft.ieee_fp32_matmul``).  Float32 matmuls that other threads run
-    at the same time also run in IEEE for that while.
+    at the same time also run in IEEE for that while; a ``"fast"`` epoch
+    that overlaps a ``"highest"`` one runs in IEEE.
 
     Returns:
       :class:`EpochResult` with batch-shaped tensors on the epoch's device.
@@ -657,6 +668,7 @@ def analyze_epoch(
         and precision == "highest"
         and backend == "matmul"
         and center == "auto"
+        and selection == "auto"
         and taper == "none"
         and lengths is None
         and dtype == torch.float32
@@ -706,8 +718,7 @@ def _check_options(*, n_fft: int, mode: str, max_candidates, center: str, select
         )
     if center not in ("auto", "always"):
         raise ValueError(f"unknown center {center!r}; expected 'auto' or 'always'")
-    if selection != "auto":
-        raise ValueError(f"unknown selection {selection!r}; the port has only 'auto'")
+    check_selection(selection)
     if taper not in fft_ops.TAPERS:
         raise ValueError(f"unknown taper {taper!r}; expected one of {fft_ops.TAPERS}")
     if backend not in fft_ops.BACKENDS:
@@ -715,6 +726,11 @@ def _check_options(*, n_fft: int, mode: str, max_candidates, center: str, select
     if precision not in fft_ops.PRECISIONS:
         raise ValueError(
             f"unknown precision {precision!r}; expected one of {fft_ops.PRECISIONS}"
+        )
+    if precision == "fast" and backend != "matmul":
+        raise ValueError(
+            'precision="fast" applies to the matmul backend only '
+            f"(got backend={backend!r})"
         )
     dynamic = (
         max_candidates in (None, "dynamic")
@@ -910,7 +926,7 @@ class PipelineConfig:
     refine: bool = False
     dtype: Any = torch.float32
     center: str = "auto"
-    #: None = "auto", the port's one order-exact selection.
+    #: None = "auto"; the JAX package's selection names are all one order.
     selection: str | None = None
     #: "auto" (one full window on a CUDA device takes the latency kernels)
     #: or "never".

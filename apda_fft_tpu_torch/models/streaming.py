@@ -27,6 +27,7 @@ from apda_fft_tpu_torch.models import pipeline as _pipeline
 from apda_fft_tpu_torch.models.pipeline import analyze_epoch
 from apda_fft_tpu_torch.models.results import EpochResult
 from apda_fft_tpu_torch.ops import fft as fft_ops
+from apda_fft_tpu_torch.ops.peaks_prominence import check_selection
 from apda_fft_tpu_torch.ops.stats import div_exact
 
 DETRENDS = ("median", "mean")
@@ -259,8 +260,7 @@ def analyze_welch(
             'precision="fast" applies to the matmul backend only '
             f"(got backend={backend!r})"
         )
-    if selection != "auto":
-        raise ValueError(f"unknown selection {selection!r}; the port has only 'auto'")
+    check_selection(selection)
     if k is None:
         k = _pipeline.default_k(mode)
     if max_candidates is None:

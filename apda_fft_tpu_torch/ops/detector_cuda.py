@@ -94,6 +94,22 @@ def _workspace(floats: int, device: torch.device) -> torch.Tensor | None:
     return torch.empty(floats, dtype=torch.float32, device=device) if floats else None
 
 
+def select_scan_work(b: int, h: int, m: int) -> tuple[int, int]:
+    """(bytes, float32 operations) of one select+scan launch on ``[b, h]``
+    magnitudes at ``m`` slots: the magnitudes read once, then the seven
+    outputs written once (``[b, m]`` int32 / bool / float32 / float32 /
+    int32 slots, 17 bytes a slot, and ``[b]`` std and count); its
+    comparisons are not float32 arithmetic, so it counts none."""
+    return b * h * 4 + b * m * 17 + b * 8, 0
+
+
+def scans_work(b: int, h: int, m: int) -> tuple[int, int]:
+    """(bytes, float32 operations) of one scans launch on ``[b, h]``
+    magnitudes at ``m`` slots: the magnitudes, the slots' bins and peaks and
+    the ``[b]`` valid counts read once, prominences and widths written once."""
+    return b * h * 4 + b * m * 16 + b * 4, 0
+
+
 def _prominence_select_scan_plain(mags: torch.Tensor, max_candidates: int):
     """Plain torch version of the kernel: ``prominence_select`` followed by
     the masked-reduction scans, same seven outputs."""
@@ -153,6 +169,7 @@ def prominence_select_scan(mags: torch.Tensor, max_candidates: int):
             f"{err_str(rc).decode()} (cudaError {rc})"
         )
     launches += 1
+    kernels.note_launch(_KERNEL, *select_scan_work(b, h, m))
     return cid, is_cand, cmag, proms, bins, std, n_cand
 
 
@@ -234,6 +251,7 @@ def prominence_scans(mags: torch.Tensor, cid: torch.Tensor, cmag: torch.Tensor,
             f"{err_str(rc).decode()} (cudaError {rc})"
         )
     scan_launches += 1
+    kernels.note_launch(_SCANS_KERNEL, *scans_work(b, h, m))
     return prom, bins
 
 
@@ -243,15 +261,17 @@ def prominence_peaks_batch(
     n_fft: int,
     k: int = 4,
     max_candidates: int = 32,
+    selection: str = "topk",
 ) -> ProminencePeaks:
     """Batch-level prominence detection with the scans kernel.
 
     Same contract as :func:`~apda_fft_tpu_torch.ops.peaks_prominence.prominence_peaks`
-    over ``mags [B, H]``: the one order-exact selection, then
-    :func:`prominence_scans` on the valid prefix of each row's slots, then the
-    torch finalize.  ``fs`` is a scalar or ``[B]``.
+    over ``mags [B, H]``: the one order-exact selection (every name of
+    ``peaks_prominence.SELECTIONS``), then :func:`prominence_scans` on the
+    valid prefix of each row's slots, then the torch finalize.  ``fs`` is a
+    scalar or ``[B]``.
     """
-    cid, is_cand, cmag, _, std, n_cand = prominence_select(mags, max_candidates)
+    cid, is_cand, cmag, _, std, n_cand = prominence_select(mags, max_candidates, selection)
     # Slots are in walk order with the invalid ones last, so the valid ones
     # form a prefix and a count is the kernel's loop bound.
     n_valid = is_cand.sum(dim=-1).to(torch.int32)

@@ -10,9 +10,10 @@ of two, DFT, zero the DC bin.
   ``_fourstep_pretranspose`` as float32 ``torch.matmul`` calls against
   float64-built DFT and twiddle tables.  The products run in IEEE float32:
   TF32 would keep about three decimal digits and break the 1e-6 spectrum
-  contract, so the global TF32 setting is overridden for the call.  On the
-  CPU they run on one intra-op thread (:func:`_one_cpu_thread`).
-* ``"xla"`` - ``torch.fft.rfft``.
+  contract, so the global TF32 setting is overridden for the call, unless
+  the caller opts into ``precision="fast"`` (TF32 products).  On the CPU
+  they run on one intra-op thread (:func:`_one_cpu_thread`).
+* ``"xla"`` - ``torch.fft.rfft``, the default.
 * ``"pallas"`` - the fused front-end kernel (``ops/fft_cuda.py``, the
   counterpart of the JAX package's ``fft_pallas.py``): one hand-written
   CUDA launch of an FFT on a CUDA tensor, its plain torch twin (the
@@ -204,12 +205,47 @@ def _fourstep_tables(n: int, n_out: int, dtype: torch.dtype, device: torch.devic
     return tuple(torch.tensor(t, device=device) for t in host)
 
 
-_ieee_lock = threading.Lock()
-_ieee_depth = 0
-_ieee_saved: list[str] = []
+_precision_lock = threading.Lock()
+#: Calls inside :func:`ieee_fp32_matmul` and :func:`fast_fp32_matmul` now.
+_depth = {"ieee": 0, "fast": 0}
+_saved: list[str] = []
+
+
+def _precision_knobs():
+    return (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul,
+            torch.backends.cudnn.conv, torch.backends.mkldnn.conv)
+
+
+def _apply_precision() -> None:
+    """Set the knobs for the calls inside (under ``_precision_lock``): IEEE
+    everywhere, and TF32 on cuBLAS only while fast calls alone are inside."""
+    knobs = _precision_knobs()
+    for k in knobs:
+        k.fp32_precision = "ieee"
+    if _depth["fast"] and not _depth["ieee"]:
+        torch.backends.cuda.matmul.fp32_precision = "tf32"
 
 
 @contextlib.contextmanager
+def _fp32_matmul(mode: str):
+    knobs = _precision_knobs()
+    with _precision_lock:
+        if not any(_depth.values()):
+            _saved[:] = [k.fp32_precision for k in knobs]
+        _depth[mode] += 1
+        _apply_precision()
+    try:
+        yield
+    finally:
+        with _precision_lock:
+            _depth[mode] -= 1
+            if any(_depth.values()):
+                _apply_precision()
+            else:
+                for k, v in zip(knobs, _saved):
+                    k.fp32_precision = v
+
+
 def ieee_fp32_matmul():
     """Run float32 matrix products and convolutions in full IEEE float32 (no
     TF32 in cuBLAS or cuDNN on CUDA, no reduced-precision oneDNN math on the
@@ -223,25 +259,29 @@ def ieee_fp32_matmul():
     threads share one override: the first to enter saves the caller's
     settings and the last to leave restores them, so none can leak.  While
     any call is inside, float32 matmuls and convolutions on every thread run
-    in IEEE.
+    in IEEE, also those of a :func:`fast_fp32_matmul` call.
     """
-    global _ieee_depth
-    knobs = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul,
-             torch.backends.cudnn.conv, torch.backends.mkldnn.conv)
-    with _ieee_lock:
-        if _ieee_depth == 0:
-            _ieee_saved[:] = [k.fp32_precision for k in knobs]
-            for k in knobs:
-                k.fp32_precision = "ieee"
-        _ieee_depth += 1
-    try:
-        yield
-    finally:
-        with _ieee_lock:
-            _ieee_depth -= 1
-            if _ieee_depth == 0:
-                for k, v in zip(knobs, _ieee_saved):
-                    k.fp32_precision = v
+    return _fp32_matmul("ieee")
+
+
+def fast_fp32_matmul():
+    """Run float32 matrix products on CUDA in TF32 (``precision="fast"``),
+    restoring the caller's settings afterwards.
+
+    The override is :func:`ieee_fp32_matmul`'s, and IEEE wins: while an
+    IEEE call is inside on any thread, products run in IEEE, so a fast call
+    that overlaps it runs (partly) in IEEE and an IEEE call never sees TF32.
+    CPU products stay IEEE: the CPU has no TF32, so there the two modes
+    coincide.
+    """
+    return _fp32_matmul("fast")
+
+
+def _matmul_precision(precision: str):
+    """The product-precision override of ``precision``."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; expected one of {PRECISIONS}")
+    return ieee_fp32_matmul() if precision == "highest" else fast_fp32_matmul()
 
 
 _cpu_thread_lock = threading.RLock()
@@ -316,20 +356,24 @@ def _direct_dft_real(x: torch.Tensor, n_out: int) -> tuple[torch.Tensor, torch.T
     return torch.matmul(x, c), torch.matmul(x, s)
 
 
-def fft_matmul_real(x: torch.Tensor, half: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+def fft_matmul_real(
+    x: torch.Tensor, precision: str = "highest", half: bool = False
+) -> tuple[torch.Tensor, torch.Tensor]:
     """Complex DFT of real ``x`` [..., N] as ``(re, im)``, by the four-step.
 
     ``half=True`` returns only the first N/2 bins (what the detectors and the
     cross spectra consume): step 3 then keeps only the columns those bins
     need.  N up to ``_DIRECT_DFT_MAX`` takes one direct table product.  The
-    products run in IEEE float32 (``ieee_fp32_matmul``), against tables built
-    in float64, and on the CPU on one thread (:func:`_one_cpu_thread`).
+    products run against tables built in float64, in IEEE float32
+    (``precision="highest"``, :func:`ieee_fp32_matmul`) or in TF32 on CUDA
+    (``"fast"``, :func:`fast_fp32_matmul`), and on the CPU on one thread
+    (:func:`_one_cpu_thread`).
     """
     n = x.shape[-1]
     if not is_pow2(n):
         raise ValueError(f"four-step FFT requires power-of-two length, got {n}")
     n_out = n // 2 if half and n >= 2 else n
-    with ieee_fp32_matmul(), _one_cpu_thread(x):
+    with _matmul_precision(precision), _one_cpu_thread(x):
         if n <= _DIRECT_DFT_MAX:
             return _direct_dft_real(x, n_out)
         dr, di = _fourstep_pretranspose(x, n_out)
@@ -351,7 +395,9 @@ def _packed_tables(n: int, dtype: torch.dtype, device: torch.device):
     return tuple(torch.tensor(t, device=device) for t in host)
 
 
-def rfft_packed_matmul(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def rfft_packed_matmul(
+    x: torch.Tensor, precision: str = "highest"
+) -> tuple[torch.Tensor, torch.Tensor]:
     """First N/2 DFT bins of real ``x`` [..., N] as ``(re, im)``, packed algorithm.
 
     Adjacent sample pairs form one complex sequence ``z[m] = x[2m] +
@@ -364,6 +410,7 @@ def rfft_packed_matmul(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
     ``x`` reshaped to ``[n1, 2*n2]`` feeds step 1 directly: the even/odd
     split surfaces only in the output columns of the step-1 products.
+    ``precision`` as in :func:`fft_matmul_real`.
     """
     n = x.shape[-1]
     if not is_pow2(n) or n < 4:
@@ -375,7 +422,7 @@ def rfft_packed_matmul(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     # z[m] = x[2m] + i*x[2m+1], m = m2 + n2*m1.  u[m1, j] = x[j + 2*n2*m1]
     # (a free view): column j = 2*m2 + c holds component c of z[m2 + n2*m1].
     u = x.reshape(*lead, n1, 2 * n2)
-    with ieee_fp32_matmul(), _one_cpu_thread(x):
+    with _matmul_precision(precision), _one_cpu_thread(x):
         # Step 1: DFT over m1 for all interleaved columns at once.
         p = torch.matmul(c1, u)
         q = torch.matmul(s1, u)
@@ -422,29 +469,45 @@ def full_spectrum(x: torch.Tensor, backend: str = "xla") -> torch.Tensor:
     return spec
 
 
+#: Bound on the normwise error of ``precision="fast"`` magnitudes against
+#: float64 ``numpy.fft``: measured 2.38e-4 and 2.44e-4 on the clean and
+#: noisy B=2048 x N=4096 epochs on an NVIDIA H100 80GB HBM3 at 700 W
+#: (``chip_profile.py --fast-modes``; ``chip_smoke.py`` phase 25 holds every
+#: run to it).
+FAST_NORMWISE_BOUND = 3e-4
+
+
 def halfspec_magnitudes(
-    x: torch.Tensor, backend: str = "matmul", precision: str = "highest"
+    x: torch.Tensor, backend: str = "xla", precision: str = "highest"
 ) -> torch.Tensor:
     """|FFT| over the first N/2 bins of real windows ``x`` [..., N], DC zeroed.
 
-    This is what the peak detectors consume.  ``backend`` is ``"matmul"``
-    (the four-step), ``"xla"`` (``torch.fft.rfft``) or ``"pallas"`` (the
-    fused front-end kernel of ``ops.fft_cuda``, ``[B, N]`` windows with N a
-    power of two >= 64).  ``precision="fast"`` (a reduced-precision matmul
-    mode) is not available until its error is measured on the card.
+    This is what the peak detectors consume.  ``backend`` is ``"xla"``
+    (``torch.fft.rfft``, the default, as in the JAX package), ``"matmul"``
+    (the four-step) or ``"pallas"`` (the fused front-end kernel of
+    ``ops.fft_cuda``, ``[B, N]`` windows with N a power of two >= 64).
+
+    ``precision="fast"`` (matmul backend only) runs the four-step's products
+    in TF32 on CUDA (:func:`fast_fp32_matmul`): it opts out of the 1e-6
+    spectrum contract and of bit-matched decisions near thresholds, for a
+    faster front end (0.46-0.49 ms against 0.55-0.61 ms at B=2048 x N=4096
+    on an H100).  Its normwise error against float64 is within
+    :data:`FAST_NORMWISE_BOUND` = 3e-4 (measured 2.4e-4); a three-pass
+    split TF32 product measured 5.6e-7 but ran at twice ``"highest"``'s
+    time, so it is not kept.  On the CPU the two modes coincide.
     """
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; expected one of {PRECISIONS}")
-    if precision == "fast":
-        raise NotImplementedError(
-            'precision="fast" is not ported yet: a TF32 mode needs its own '
-            "measured error bound on the card"
+    if precision == "fast" and backend != "matmul":
+        raise ValueError(
+            'precision="fast" applies to the matmul backend only '
+            f"(got backend={backend!r}); xla/pallas have no reduced-precision pass to trade"
         )
     n = x.shape[-1]
     if backend == "xla":
         mags = torch.fft.rfft(x)[..., : n // 2].abs().to(x.dtype)
     elif backend == "matmul":
-        with ieee_fp32_matmul(), _one_cpu_thread(x):
+        with _matmul_precision(precision), _one_cpu_thread(x):
             if n <= _DIRECT_DFT_MAX:
                 re, im = _direct_dft_real(x, n // 2)
                 mags = torch.sqrt(re**2 + im**2)

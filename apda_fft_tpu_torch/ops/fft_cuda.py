@@ -111,6 +111,23 @@ def _halfspec_magnitudes_fused_plain(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def rfft_mag_flops(n: int) -> int:
+    """Float32 operations that |rfft| of one real ``n``-point window needs,
+    whatever the algorithm: 2.5*n*log2(n) for the real FFT (half of a
+    complex radix-2 FFT's 5*n*log2(n)), then two multiplies, an add and a
+    square root for each of the n/2 magnitudes.  The four-step does more
+    (2*n*n1 + 4*(n/2)*n2 FMAs); a bound counts only what the function
+    needs."""
+    return int(2.5 * n * (n.bit_length() - 1)) + 4 * (n // 2)
+
+
+def halfspec_work(b: int, n: int) -> tuple[int, int]:
+    """(bytes, float32 operations) of one kernel launch on ``[b, n]``
+    windows: each window read once, its n/2 magnitudes written once (the
+    twiddle table is the algorithm's, not the function's), and |rfft|."""
+    return b * n * 6, b * rfft_mag_flops(n)
+
+
 def _launch(x: torch.Tensor) -> torch.Tensor:
     global launches
     b, n = x.shape
@@ -131,6 +148,7 @@ def _launch(x: torch.Tensor) -> torch.Tensor:
             f"{_KERNEL} launch failed (B={b}, N={n}): {err_str(rc).decode()} (cudaError {rc})"
         )
     launches += 1
+    kernels.note_launch(_KERNEL, *halfspec_work(b, n))
     return out
 
 

@@ -33,7 +33,7 @@ import torch
 from apda_fft_tpu_torch.models.pipeline import _placed, default_k, refine_subbin
 from apda_fft_tpu_torch.models.results import EpochResult
 from apda_fft_tpu_torch.ops.fft import halfspec_magnitudes, is_pow2, next_pow2
-from apda_fft_tpu_torch.ops.fft_cuda import _twiddle_table
+from apda_fft_tpu_torch.ops.fft_cuda import _twiddle_table, rfft_mag_flops
 from apda_fft_tpu_torch.ops.peaks_prominence import (
     _prominence_and_width,
     prominence_finalize,
@@ -117,6 +117,14 @@ def _analyze_window_lowlat_plain(
     )
 
 
+def lowlat_work(n: int, k: int) -> tuple[int, int]:
+    """(bytes, float32 operations) of one launch on an ``n``-sample window
+    with ``k`` slots: the window and the rate read once, ``k + 3`` int32 and
+    ``6 * k`` float32 outputs written once, and |rfft|; the detector's
+    operations are left out, which keeps a bound a lower one."""
+    return n * 4 + 4 + 4 * (k + 3 + 6 * k), rfft_mag_flops(n)
+
+
 def _launch(x: torch.Tensor, fs: torch.Tensor, *, mode: str, k: int, budget: int,
             refine: bool) -> EpochResult:
     n = x.shape[-1]
@@ -147,6 +155,7 @@ def _launch(x: torch.Tensor, fs: torch.Tensor, *, mode: str, k: int, budget: int
             f"{err_str(rc).decode()} (cudaError {rc})"
         )
     launches[name] += 1
+    kernels.note_launch(name, *lowlat_work(n, k))
     f = fout.view(6, 1, k)
     return EpochResult(
         count=iout[k:k + 1], idx=iout[:k].view(1, k), freq=f[0], mag=f[1], prominence=f[2],

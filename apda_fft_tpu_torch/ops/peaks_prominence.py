@@ -41,6 +41,19 @@ _UNROLL_MAX = 8
 #: Elements of one [b, M, H] scan chunk: bounds the plain scans' memory.
 _SCAN_CHUNK_ELEMS = 1 << 24
 
+#: The JAX package's candidate-selection names.  The JAX package holds them
+#: equal (its ``tests/test_peaks_match.py``); the port runs every one as its
+#: one order-exact stable sort.
+SELECTIONS = ("auto", "auto_spmd", "argmax", "topk", "sort")
+
+
+def check_selection(selection: str) -> None:
+    """Raise the JAX package's ``ValueError`` for an unknown selection name."""
+    if selection not in SELECTIONS:
+        raise ValueError(
+            f"unknown selection {selection!r}; expected 'auto', 'argmax', 'topk' or 'sort'"
+        )
+
 
 class ProminencePeaks(NamedTuple):
     """Top-k peaks per window (fixed k slots, ``count`` of them valid)."""
@@ -75,7 +88,7 @@ def _candidate_mask(mags: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
     return local_max & (mags > thr[..., None])
 
 
-def prominence_select(mags: torch.Tensor, max_candidates: int):
+def prominence_select(mags: torch.Tensor, max_candidates: int, selection: str = "auto"):
     """Threshold, local maxima and the magnitude-ordered candidate slots.
 
     ``mags [B, H]`` -> ``(cid, is_cand, cmag, threshold, std, n_candidates)``
@@ -84,8 +97,10 @@ def prominence_select(mags: torch.Tensor, max_candidates: int):
     ascending bin (a stable sort on the negated score; ``torch.topk`` leaves
     the tie order unspecified).  Slots past a row's candidates hold bin 0
     with its magnitude and ``is_cand`` False - the fill an argmax over an
-    exhausted score gives, which the fused kernel reproduces.
+    exhausted score gives, which the fused kernel reproduces.  Every name
+    of :data:`SELECTIONS` gives this order.
     """
+    check_selection(selection)
     h = mags.shape[-1]
     thr, std = noise_threshold(mags)
     cand_mask = _candidate_mask(mags, thr)
@@ -140,6 +155,81 @@ def _prominence_and_width(mags: torch.Tensor, cid: torch.Tensor, peak: torch.Ten
     if not proms:
         return torch.zeros_like(peak), torch.ones_like(cid)
     return torch.cat(proms), torch.cat(bins)
+
+
+def _sparse_tables(mags: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Range-max and range-min sparse tables ``[B, L+1, H]``: entry
+    ``[:, l, i]`` is the max (min) of ``mags[:, i : i + 2**l]``, clipped at
+    the row's end (padded with the operation's identity)."""
+    h = mags.shape[-1]
+    levels = max(h.bit_length() - 1, 1)
+    maxs, mins = [mags], [mags]
+    cur_max, cur_min = mags, mags
+    for lvl in range(1, levels + 1):
+        off = 1 << (lvl - 1)
+        cur_max = torch.maximum(cur_max, torch.nn.functional.pad(
+            cur_max[:, off:], (0, min(off, h)), value=-torch.inf))
+        cur_min = torch.minimum(cur_min, torch.nn.functional.pad(
+            cur_min[:, off:], (0, min(off, h)), value=torch.inf))
+        maxs.append(cur_max)
+        mins.append(cur_min)
+    return torch.stack(maxs, dim=1), torch.stack(mins, dim=1)
+
+
+def _prominence_and_width_sparse(mags: torch.Tensor, cid: torch.Tensor, peak: torch.Tensor):
+    """:func:`_prominence_and_width` by doubling over sparse tables: each
+    directional scan extends a run over which its predicate ("no blocker",
+    "no stop sample") holds by power-of-two blocks, one table entry a step.
+    The JAX package's ``scan_impl="sparse"`` cross-check, in the same steps.
+    """
+    b, h = mags.shape
+    levels = max(h.bit_length() - 1, 1)
+    st_max, st_min = _sparse_tables(mags)
+    j = cid.long()
+
+    def at(table, lvl: int, pos):
+        return torch.gather(table[:, lvl], 1, pos)
+
+    def range_min(lo, hi):
+        """min(mags[lo..hi]) inclusive; +inf when the interval is empty."""
+        length = torch.clamp(hi - lo + 1, min=1)
+        lvl = torch.floor(torch.log2(length.to(torch.float64))).long()
+        step = torch.ones_like(lvl) << lvl
+        flat = st_min.reshape(b, -1)
+        lo_v = torch.gather(flat, 1, lvl * h + lo.clamp(0, h - 1))
+        hi_v = torch.gather(flat, 1, lvl * h + torch.clamp(hi - step + 1, min=0))
+        return torch.where(lo > hi, torch.inf, torch.minimum(lo_v, hi_v))
+
+    # Nearest strictly greater sample on each side (the prominence blockers).
+    pos_l, pos_r = j, j + 1
+    for lvl in range(levels, -1, -1):
+        step = 1 << lvl
+        ok_l = (pos_l - step >= 0) & (at(st_max, lvl, torch.clamp(pos_l - step, min=0)) <= peak)
+        pos_l = torch.where(ok_l, pos_l - step, pos_l)
+        ok_r = (pos_r + step <= h) & (at(st_max, lvl, torch.clamp(pos_r, max=h - 1)) <= peak)
+        pos_r = torch.where(ok_r, pos_r + step, pos_r)
+    min_left = torch.minimum(peak, range_min(pos_l, j - 1))
+    min_right = torch.minimum(peak, range_min(j + 1, pos_r - 1))
+    prom = peak - torch.maximum(min_left, min_right)
+
+    # Half-power width stops: mags <= target or mags > peak.
+    valley = peak - prom
+    target = valley + prom * 0.707
+    stop_at_j = peak <= target
+    wl, wr = j, j + 1
+    for lvl in range(levels, -1, -1):
+        step = 1 << lvl
+        il = torch.clamp(wl - step, min=0)
+        ok_l = ((wl - step >= 0) & (at(st_min, lvl, il) > target)
+                & (at(st_max, lvl, il) <= peak))
+        wl = torch.where(ok_l, wl - step, wl)
+        ir = torch.clamp(wr, max=h - 1)
+        ok_r = ((wr + step <= h) & (at(st_min, lvl, ir) > target)
+                & (at(st_max, lvl, ir) <= peak))
+        wr = torch.where(ok_r, wr + step, wr)
+    left_idx = torch.where(stop_at_j, j, torch.clamp(wl - 1, min=0))
+    right_idx = torch.where(stop_at_j, j, torch.clamp(wr, max=h - 1))
+    return prom, torch.clamp(right_idx - left_idx, min=1).to(torch.int32)
 
 
 def prominence_finalize(cid, is_cand, cmag, proms, bins, fs, n_fft: int, k: int, std,
@@ -263,14 +353,20 @@ def prominence_peaks(
     k: int = 4,
     max_candidates: int = 32,
     selection: str = "auto",
+    scan_impl: str = "masked",
 ) -> ProminencePeaks:
     """Top-k prominent peaks of each half-spectrum in ``mags [B, H]``.
 
-    ``fs`` is the sampling rate, a scalar or ``[B]``.  ``selection`` accepts
-    only ``"auto"``: the port has one order-exact selection.
+    ``fs`` is the sampling rate, a scalar or ``[B]``.  ``selection`` takes
+    the JAX package's names (:data:`SELECTIONS`), all one order.
+    ``scan_impl`` is ``"masked"`` (masked reductions, the path the kernels
+    mirror) or ``"sparse"`` (doubling over sparse tables, a cross-check).
     """
-    if selection != "auto":
-        raise ValueError(f"unknown selection {selection!r}; the port has only 'auto'")
-    cid, is_cand, cmag, _, std, n_cand = prominence_select(mags, max_candidates)
-    proms, bins = _prominence_and_width(mags, cid, cmag)
+    cid, is_cand, cmag, _, std, n_cand = prominence_select(mags, max_candidates, selection)
+    if scan_impl == "masked":
+        proms, bins = _prominence_and_width(mags, cid, cmag)
+    elif scan_impl == "sparse":
+        proms, bins = _prominence_and_width_sparse(mags, cid, cmag)
+    else:
+        raise ValueError(f"unknown scan_impl {scan_impl!r}; expected 'sparse' or 'masked'")
     return prominence_finalize(cid, is_cand, cmag, proms, bins, fs, n_fft, k, std, n_cand)

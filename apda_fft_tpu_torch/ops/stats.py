@@ -22,15 +22,72 @@ def div_exact(x: torch.Tensor, d: float) -> torch.Tensor:
     return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
-def median_lastaxis(x: torch.Tensor, length: torch.Tensor | None = None) -> torch.Tensor:
+def _float_order(x: torch.Tensor) -> torch.Tensor:
+    """Monotone map of float32 to int64 in [0, 2**32): ``u(a) < u(b)`` iff
+    ``a < b`` for finite inputs (the JAX package's uint32 order key; torch
+    has no full uint32 arithmetic, so the key lives in int64)."""
+    b = x.view(torch.int32).to(torch.int64)
+    return torch.where(b < 0, ~b, b + (1 << 31))
+
+
+def _from_float_order(u: torch.Tensor) -> torch.Tensor:
+    b = torch.where(u >= (1 << 31), u - (1 << 31), ~u)
+    return b.to(torch.int32).view(torch.float32)
+
+
+def _radix_kth_smallest(u: torch.Tensor, valid: torch.Tensor, k0: torch.Tensor) -> torch.Tensor:
+    """Exact 0-indexed ``k0``-th smallest of each row's valid entries of the
+    order keys ``u [B, N]``, by 32 masked count passes (no sort)."""
+    prefix = torch.zeros(u.shape[:-1], dtype=torch.int64, device=u.device)
+    for i in range(32):
+        cand = prefix | (1 << (31 - i))
+        cnt = (valid & (u < cand[:, None])).sum(dim=-1)
+        prefix = torch.where(cnt <= k0, cand, prefix)
+    return prefix
+
+
+def _median_select_f32(x: torch.Tensor, length: torch.Tensor | None) -> torch.Tensor:
+    """:func:`median_lastaxis` by radix selection: the same values as the
+    sort for finite float32 rows, in 32 count passes over each row."""
+    n = x.shape[-1]
+    lead = x.shape[:-1]
+    u = _float_order(x.reshape(-1, n))
+    if length is None:
+        valid = torch.ones(u.shape, dtype=torch.bool, device=x.device)
+        cnt = torch.full(u.shape[:1], n, dtype=torch.int64, device=x.device)
+    else:
+        cnt = torch.as_tensor(length, device=x.device).broadcast_to(lead).reshape(-1).long()
+        valid = torch.arange(n, device=x.device) < cnt[:, None]
+        u = torch.where(valid, u, (1 << 32) - 1)
+    lo = _from_float_order(_radix_kth_smallest(u, valid, (cnt - 1) // 2))
+    hi = _from_float_order(_radix_kth_smallest(u, valid, cnt // 2))
+    return ((lo + hi) * torch.full((), 0.5, dtype=x.dtype, device=x.device)).reshape(lead)
+
+
+def median_lastaxis(
+    x: torch.Tensor,
+    length: torch.Tensor | None = None,
+    method: str = "auto",
+) -> torch.Tensor:
     """Median over the last axis, optionally masked to a per-row valid prefix.
 
     Matches ``statistics.median``: for even counts, the mean of the two
     middle order statistics (``torch.median`` returns the lower one, so it is
     not used).  ``length`` (integer tensor broadcastable to ``x.shape[:-1]``)
     restricts each row to its first ``length`` entries.
+
+    ``method``: ``"auto"``/``"sort"`` (a sort, the path every caller takes)
+    or ``"select"`` (radix order-statistic selection by 32 masked count
+    passes, float32 only), an independent implementation kept as a
+    cross-check of the sort, as in the JAX package.
     """
     n = x.shape[-1]
+    if method not in ("auto", "sort", "select"):
+        raise ValueError(f"unknown method {method!r}")
+    if method == "select":
+        if x.dtype != torch.float32:
+            raise ValueError("method='select' supports float32 only")
+        return _median_select_f32(x, length)
     half = torch.full((), 0.5, dtype=x.dtype, device=x.device)
     if length is None:
         s = torch.sort(x, dim=-1).values

@@ -180,6 +180,7 @@ def analyze_epoch_sharded(
     center: str = "auto",
     selection: str = "auto",
     batch_chunk: int = 0,
+    lowlat: str = "auto",
     taper: str = "none",
     precision: str = "highest",
 ) -> EpochResult:
@@ -193,13 +194,15 @@ def analyze_epoch_sharded(
     the select+scan kernel on every shard); the dynamic budget is one loop
     over the whole padded batch, so its budget, re-runs and learned tier are
     the single-device epoch's.  Returns an :class:`EpochResult` on the
-    mesh's first device.  ``batch_chunk`` must be 0: each shard runs whole.
+    mesh's first device.  ``batch_chunk`` (default 0: each shard runs whole)
+    splits each shard's front end and detector into blocks of at most that
+    many rows; decisions do not depend on it.  ``lowlat`` is validated and
+    otherwise unused: no shard takes the single-window route.
     """
     if mesh is None:
         mesh = make_mesh()
-    if batch_chunk:
-        raise ValueError(f"batch_chunk must be 0 on a mesh (each shard runs whole), "
-                         f"got {batch_chunk}")
+    if lowlat not in ("auto", "never"):
+        raise ValueError(f"unknown lowlat {lowlat!r}; expected 'auto' or 'never'")
     x = _as_tensor(samples, dtype)
     if x.dim() < 2:
         x = x[None, :]
@@ -243,6 +246,11 @@ def analyze_epoch_sharded(
         _blocks(len_rows, devices) if len_rows is not None else [None] * len(devices),
         _blocks(torch.from_numpy(corr), devices) if corr is not None else [None] * len(devices),
     ))
+    if batch_chunk:
+        # A shard's chunks are blocks of their own on its device: the
+        # two-tier split and the gather take any number of blocks.
+        shards = [tuple(None if t is None else t[lo:lo + batch_chunk] for t in shard)
+                  for shard in shards for lo in range(0, shard[0].shape[0], batch_chunk)]
 
     def run(run_mode: str, mc) -> EpochResult:
         return _sharded_pass(shards, dev0, n_fft=n_fft, mode=run_mode, k=k, backend=backend,

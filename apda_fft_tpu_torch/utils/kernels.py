@@ -15,6 +15,7 @@ There is no fallback here: a missing ``nvcc`` or a failed build raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -22,10 +23,16 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+#: Where libraries are built and loaded from (``utils/compilecache.py``
+#: points it at a cache directory).
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+#: A library whose build took less is loaded and then removed from
+#: ``BUILD_DIR`` (``enable_compilation_cache(min_compile_time_secs=)``).
+MIN_PERSIST_SECS = 0.0
 
 #: No --use_fast_math: the detector's decisions need IEEE division, sqrt
 #: and round-to-nearest-even exactly as the reference computes them.
@@ -37,6 +44,26 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
+_observers: list = []
+
+
+def note_launch(name: str, nbytes: int, flops: int) -> None:
+    """Report one launch of kernel ``name`` and its work (bytes of its inputs
+    and outputs, float32 operations; each kernel module's ``*_work``) to
+    every :func:`observe_launches` callback.  The wrappers call it where
+    they count a launch."""
+    for callback in tuple(_observers):
+        callback(name, nbytes, flops)
+
+
+@contextlib.contextmanager
+def observe_launches(callback):
+    """Call ``callback(name, nbytes, flops)`` for every kernel launch inside."""
+    _observers.append(callback)
+    try:
+        yield
+    finally:
+        _observers.remove(callback)
 
 
 def nvcc_path() -> str:
@@ -95,7 +122,12 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             path = library_path(name)
+            built_in = None
             if not os.path.exists(path):
+                t0 = time.perf_counter()
                 _build(os.path.join(CSRC_DIR, name + ".cu"), path)
+                built_in = time.perf_counter() - t0
             lib = _libs[name] = ctypes.CDLL(path)
+            if built_in is not None and built_in < MIN_PERSIST_SECS:
+                os.unlink(path)  # the mapping stays valid
         return lib

@@ -1,10 +1,12 @@
-"""Per-epoch process/wall/%CPU/RSS metrics.
+"""Profiling helpers: per-epoch metrics, device traces and work counts.
 
-Counterpart of ``apda_fft_tpu/utils/profiling.py``'s :class:`EpochMetrics`:
-the reference self-profiles every FFT run with process and wall time, %CPU
-and peak RSS (``GT_FFT_v5.py:623-624,663-676``), and this keeps that metric
-shape.  On a CUDA machine the wall clock stops only after
-``torch.cuda.synchronize()``, so it covers the device work the epoch queued.
+Counterpart of ``apda_fft_tpu/utils/profiling.py``.  :class:`EpochMetrics`
+keeps the reference's self-profile of every FFT run (process and wall time,
+%CPU and peak RSS, ``GT_FFT_v5.py:623-624,663-676``); on a CUDA machine its
+wall clock stops only after ``torch.cuda.synchronize()``, so it covers the
+device work the epoch queued.  :func:`trace` writes a ``torch.profiler``
+trace, and :func:`compiled_stats` counts a call's operations, the hand
+kernels' bytes and its peak device memory.
 """
 
 from __future__ import annotations
@@ -15,6 +17,9 @@ import resource
 import time
 
 import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from apda_fft_tpu_torch.utils import kernels
 
 
 class EpochMetrics:
@@ -47,3 +52,54 @@ class EpochMetrics:
                 "memrss": float(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss),
             }
             self.history.append(self.last)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the block with ``torch.profiler`` and write its trace into
+    ``log_dir`` (Chrome trace JSON, also readable by TensorBoard's profiler
+    plugin): host activity always, CUDA kernels when a card is present."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+        activities=activities,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir),
+    ):
+        yield
+
+
+def compiled_stats(fn, *args, **kwargs) -> dict:
+    """Run ``fn(*args, **kwargs)`` once and report ``{"flops",
+    "bytes_accessed", "memory_mb"}``, the keys of the JAX package's XLA
+    cost analysis.
+
+    * ``flops``: the torch operations that ``FlopCounterMode`` counts
+      (matrix products and convolutions), plus, for each hand-kernel launch,
+      its kernel's float32 operations (``note_launch``, from the
+      ``*_work`` function beside each wrapper);
+    * ``bytes_accessed``: the hand kernels' bytes (inputs read once,
+      outputs written once), or -1.0 when no kernel launched (torch
+      operations' bytes are not counted);
+    * ``memory_mb``: the peak of CUDA memory allocated during the call above
+      what was allocated at its start, in MB, or -1.0 without a card.
+    """
+    launched = []
+    card = torch.cuda.is_available()
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+    with FlopCounterMode(display=False) as counter, kernels.observe_launches(
+        lambda name, nbytes, flops: launched.append((nbytes, flops))
+    ):
+        fn(*args, **kwargs)
+    memory_mb = -1.0
+    if card:
+        torch.cuda.synchronize()
+        memory_mb = (torch.cuda.max_memory_allocated() - start) / 1e6
+    return {
+        "flops": float(counter.get_total_flops() + sum(f for _, f in launched)),
+        "bytes_accessed": float(sum(b for b, _ in launched)) if launched else -1.0,
+        "memory_mb": memory_mb,
+    }

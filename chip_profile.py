@@ -6,6 +6,8 @@
     python3 chip_profile.py --block-sizes   # item 4 only
     python3 chip_profile.py --sass OTHER_TREE   # item 5 only
     python3 chip_profile.py --paths         # item 6 only, ~1 min
+    python3 chip_profile.py --fast-modes    # item 7 only, ~1 min
+    python3 chip_profile.py --threshold-order   # item 8 only, ~30 s
 
 1. profile: flexible ``analyze_epoch`` (refine, lowlat="never") on the
    B=2048 x N=4096 clean and noisy corpora of ``chip_smoke.py``, after two
@@ -42,6 +44,19 @@
    (1536 records, window 1024, both front ends) and ``analyze_stream``
    (BASELINE cfg4 at hop 4096, both front ends), at ``chip_smoke.py``
    phases 14-16's sizes, inputs from host memory.
+7. fast front end: the two candidates for ``precision="fast"`` against
+   ``"highest"`` on the clean and noisy B=2048 x N=4096 corpora (centred):
+   the four-step's products in one TF32 pass (the knob
+   ``fast_fp32_matmul`` sets) and in a three-pass split TF32 (each operand
+   cut into a TF32 head and an IEEE tail, ``hi*hi + hi*lo + lo*hi``, the
+   counterpart of the TPU's three bf16 passes); normwise error of the
+   magnitudes against float64 ``numpy.fft`` and CUDA-event medians of 20,
+   in the order highest, single, split, split, single, highest.
+8. threshold order: the select+scan kernel against its plain twin on the
+   clean and noisy corpora's magnitudes at both precisions, each scaled
+   by 1, 1.001, ..., 1.004 (20 batches of 2048 rows, M=32): the rows whose
+   std (which sets the noise threshold) differs in any bit, and the rows
+   whose candidate count differs (ROADMAP.md §C).
 
 Every line carries the card's name and power limit.  Exit code 0 unless a
 check fails; the probe's mismatches are reported, not raised.
@@ -377,6 +392,86 @@ def sass_compare(other: str, card: str) -> None:
     log(f"[sass] this tree against {other}; {card}")
 
 
+def _split_tf32(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``t`` as a TF32-exact head (10 mantissa bits kept) and its tail."""
+    hi = (t.view(torch.int32) & -8192).view(torch.float32)
+    return hi, t - hi
+
+
+def _split_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    ah, al = _split_tf32(a)
+    bh, bl = _split_tf32(b)
+    return torch.matmul(ah, bh) + (torch.matmul(ah, bl) + torch.matmul(al, bh))
+
+
+def _split_fourstep_magnitudes(x: torch.Tensor) -> torch.Tensor:
+    """``fft_ops._fourstep_magnitudes`` with every product in three TF32 passes."""
+    n = x.shape[-1]
+    n_out = n // 2
+    n1, n2 = fft_ops.split_lanes(n)
+    k1_out = n_out // n2
+    cs2, tc, ts, c1s1 = fft_ops._fourstep_tables(n, n_out, x.dtype, x.device)
+    b = _split_matmul(cs2, x.reshape(*x.shape[:-1], n2, n1))
+    br, bi = b[..., :n2, :], b[..., n2:, :]
+    cr = br * tc - bi * ts
+    ci = br * ts + bi * tc
+    p = _split_matmul(cr, c1s1)
+    q = _split_matmul(ci, c1s1)
+    dr, di = p[..., :k1_out] - q[..., k1_out:], p[..., k1_out:] + q[..., :k1_out]
+    mags = torch.sqrt(dr**2 + di**2).transpose(-1, -2).reshape(*x.shape[:-1], n_out)
+    mags[..., 0] = 0
+    return mags
+
+
+def fast_modes(corpora: dict[str, np.ndarray], card: str) -> None:
+    for name, x in corpora.items():
+        xc = x - x.mean(axis=-1, keepdims=True)
+        ref = np.abs(np.fft.rfft(xc.astype(np.float64))[:, :N_FFT // 2])
+        ref[:, 0] = 0
+        xt = torch.from_numpy(xc).cuda()
+
+        def single():
+            return fft_ops.halfspec_magnitudes(xt, backend="matmul", precision="fast")
+
+        def split():
+            with fft_ops.fast_fp32_matmul():
+                return _split_fourstep_magnitudes(xt)
+
+        modes = {
+            "highest": lambda: fft_ops.halfspec_magnitudes(xt, backend="matmul"),
+            "tf32 single pass": single,
+            "tf32 split, 3 passes": split,
+        }
+        times = collections.defaultdict(list)
+        for mode in ("highest", "tf32 single pass", "tf32 split, 3 passes",
+                     "tf32 split, 3 passes", "tf32 single pass", "highest"):
+            times[mode].append(chip_smoke.event_ms(modes[mode]))
+        for mode, fn in modes.items():
+            got = fn().cpu().numpy().astype(np.float64)
+            err = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+            log(f"[fast] {name}: {mode}: normwise error {err:.3e} vs float64 numpy.fft; "
+                f"{' / '.join(f'{t:.4f}' for t in times[mode])} ms (CUDA events, median "
+                f"of 20); {card}")
+
+
+def threshold_order(corpora: dict[str, np.ndarray], card: str) -> None:
+    rows = std_off = ncand_off = 0
+    for name, x in corpora.items():
+        xs = torch.from_numpy(x).cuda()
+        xc = xs - xs.mean(dim=-1, keepdim=True)
+        for prec in ("highest", "fast"):
+            for rep in range(5):
+                mags = fft_ops.halfspec_magnitudes(xc * (1 + rep * 1e-3), backend="matmul",
+                                                   precision=prec).contiguous()
+                got = detector_cuda.prominence_select_scan(mags, 32)
+                want = detector_cuda._prominence_select_scan_plain(mags, 32)
+                rows += mags.shape[0]
+                std_off += int((got[5] != want[5]).sum())
+                ncand_off += int((got[6] != want[6]).sum())
+    log(f"[threshold] select+scan vs plain twin on {rows} rows: std differs in {std_off}, "
+        f"n_cand in {ncand_off}; {card}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--skip-cpu-probe", action="store_true")
@@ -385,6 +480,10 @@ def main() -> int:
                         help="only time the kernels' block sizes (item 4)")
     parser.add_argument("--paths", action="store_true",
                         help="only profile the gateway's record, Welch and stream paths (item 6)")
+    parser.add_argument("--fast-modes", action="store_true",
+                        help="only measure the candidates for precision='fast' (item 7)")
+    parser.add_argument("--threshold-order", action="store_true",
+                        help="only compare B1's threshold with its plain twin's (item 8)")
     parser.add_argument("--sass", metavar="OTHER_TREE",
                         help="only compare the kernels' compiled code with another "
                              "checkout's (item 5)")
@@ -411,6 +510,15 @@ def main() -> int:
         log(card)
         return 0
     corpora = {"clean": chip_smoke.clean_batch(BATCH), "noisy": chip_smoke.noisy_batch(BATCH)}
+    if args.threshold_order:
+        chip_smoke.phase_build()
+        threshold_order(corpora, card)
+        log(card)
+        return 0
+    if args.fast_modes:
+        fast_modes(corpora, card)
+        log(card)
+        return 0
     if args.block_sizes:
         block_sizes(corpora["noisy"], card)
         log(card)

@@ -218,6 +218,32 @@ Phases 23 and 24 drive the sharded paths and the command line:
    rule); ``doctor --json`` exits 0 on the card; ``oracle-check`` prints
    MATCH for every file and mode; ``track`` raises its drift alert;
 
+Phase 25 drives the last slice of the port:
+
+25. times first: the four-step front end at ``precision="fast"`` and
+   ``"highest"`` (B=2048 x N=4096, CUDA events, median of 20, in the order
+   highest, fast, fast, highest); ``utils.benchtime.per_iteration_stats``
+   on the clean epoch beside its CUDA-event time; B1's and B5's long-row
+   kernels (H > 57856) at phase 5's N=131072 rows (B=16, H=65536, M=32,
+   profiler device time) with their bounds; a ``"highest"`` and a
+   ``"fast"`` epoch in two threads at once, ten times (every ``"highest"``
+   result bit-equal to a lone run; untapped, see the code).  Then, with the
+   launch counts
+   zeroed before and read after and every B1/B2/B3/B4 call tapped and held
+   against its plain twin: the clean and noisy epochs (flexible, refine,
+   lowlat="never") at ``precision="fast"`` and ``"highest"`` (the fast
+   magnitudes within ``ops.fft.FAST_NORMWISE_BOUND`` of float64
+   numpy.fft, windows whose decisions differ counted); the lone
+   ``"highest"`` run of the thread pair again; the seven
+   ``apda_fft_tpu_torch.examples``
+   on the card, each printing what its ``--device cpu`` run (a subprocess)
+   prints under ``tests/example_lines.py``'s rule.  Then
+   ``utils.profiling.trace`` (its trace must name B1's kernel),
+   ``compiled_stats`` on the clean epoch (flops and memory above 0) and the
+   build cache: a fresh process builds every library into an enabled
+   ``utils.compilecache`` directory, a second one loads them all from it
+   with the builders disabled;
+
 then one JSON line describing the five kernels, each with its bound (the
 larger of its bytes over 3.35 TB/s and its float32 operations over
 67 TFLOP/s, computed from the shapes timed) and the time of one PyTorch
@@ -240,6 +266,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -269,7 +296,9 @@ from apda_fft_tpu_torch.ops.fft_cuda import (
     halfspec_magnitudes_fused,
 )
 from apda_fft_tpu_torch.ops.peaks_prominence import prominence_select
-from apda_fft_tpu_torch.utils import kernels
+from apda_fft_tpu_torch.ops.stats import noise_threshold
+from apda_fft_tpu_torch.ops import fft as fft_ops
+from apda_fft_tpu_torch.utils import benchtime, kernels, profiling
 from apda_fft_tpu_torch.utils.synthetic import modal_records
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -404,16 +433,6 @@ def bound(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
-def rfft_mag_flops(n: int) -> int:
-    """Float32 operations that |rfft| of one real ``n``-point window needs,
-    whatever the algorithm: 2.5*n*log2(n) for the real FFT (half of a
-    complex radix-2 FFT's 5*n*log2(n)), then two multiplies, an add and a
-    square root for each of the n/2 magnitudes.  The four-step that the
-    kernels run does more (2*n*n1 + 4*(n/2)*n2 FMAs); a bound counts only
-    what the function needs."""
-    return int(2.5 * n * (n.bit_length() - 1)) + 4 * (n // 2)
-
-
 def phase_build() -> None:
     """Builds the four sources at once, one nvcc each."""
     def build(name, load):
@@ -445,11 +464,34 @@ def _kernel_equals_plain(mags: torch.Tensor, m: int, got, case: str) -> float:
         g, w = g.cpu().numpy(), w.cpu().numpy()
         assert g.shape == w.shape, (case, name, g.shape, w.shape)
         if g.dtype.kind in "biu":
+            if not np.array_equal(g, w):
+                log(_threshold_report(mags, got, want, np.flatnonzero(
+                    (g != w).reshape(g.shape[0], -1).any(axis=1)), case))
             np.testing.assert_array_equal(g, w, err_msg=f"{case} {name}")
         else:
             np.testing.assert_allclose(g, w, rtol=1e-6, atol=0, err_msg=f"{case} {name}")
             err = max(err, float(np.abs(g - w).max(initial=0.0)))
     return err
+
+
+def _threshold_report(mags: torch.Tensor, got, want, rows, case: str) -> str:
+    """For rows where the kernel's integers differ from the plain twin's:
+    each side's std and threshold, the float64 threshold, and the strict
+    local maxima that lie between the kernel's and the twin's threshold."""
+    lines = [f"[{case}] {len(rows)} rows differ: {rows[:8].tolist()}"]
+    for r in rows[:8]:
+        x = mags[r].double().cpu().numpy()
+        thr64 = x.mean() + 2.0 * x.std(ddof=1)
+        sd_k, sd_p = float(got[5][r]), float(want[5][r])
+        thr_p = float(noise_threshold(mags[r:r + 1])[0][0])
+        local = (x[1:-1] > x[:-2]) & (x[1:-1] > x[2:])
+        near = np.flatnonzero(local & (np.abs(x[1:-1] - thr64) <= 1e-5 * abs(thr64))) + 1
+        lines.append(
+            f"  row {r}: std kernel {sd_k!r} plain {sd_p!r}; threshold float64 {thr64!r}, "
+            f"plain {thr_p!r}; n_cand kernel {int(got[6][r])} plain "
+            f"{int(want[6][r])}; maxima within 1e-5 of the float64 threshold: "
+            f"{[(int(i), float(x[i])) for i in near[:6]]}")
+    return "\n".join(lines)
 
 
 def overflow_spectra(b: int, h: int = 32768) -> np.ndarray:
@@ -1427,7 +1469,7 @@ def phase_new_times(corpora: dict[str, np.ndarray], card: str) -> dict[str, dict
     for k in order:
         times[k].append(event_ms(fns[k]))
     dev_ms = _kernel_device_ms(fns["kernel"], "halfspec_fft_kernel")
-    b_ms, b_by = bound(6 * x.numel(), BATCH * rfft_mag_flops(N_FFT))
+    b_ms, b_by = bound(*fft_cuda.halfspec_work(BATCH, N_FFT))
     log(f"[13 times] fused front end B={BATCH} N={N_FFT}: kernel "
         f"{' / '.join(f'{t:.4f}' for t in times['kernel'])} ms (device {dev_ms:.4f} ms, "
         f"profiler mean of 20), plain twin {' / '.join(f'{t:.4f}' for t in times['plain'])} "
@@ -2972,6 +3014,228 @@ def phase_cli(signals, card: str) -> None:
         f"{len(jobs)} subprocesses, 8 at a time, in {time.perf_counter() - t0:.1f} s; {card}")
 
 
+# ---------------------------------------------------------------- the last slice
+
+EXAMPLES = ("quickstart", "welch_and_taper", "severity_and_shock", "modal_fdd",
+            "harmonics_and_mixed_rates", "drift_monitoring", "gateway_simulation")
+
+_CACHE_CHILD = """
+import concurrent.futures, os, sys
+from apda_fft_tpu_torch.io import native
+from apda_fft_tpu_torch.ops import detector_cuda, fft_cuda, latency_cuda
+from apda_fft_tpu_torch.utils import compilecache, kernels
+cache = compilecache.enable_compilation_cache(sys.argv[1], min_compile_time_secs=0.0)
+if sys.argv[2] == "load":
+    def refuse(*args):
+        raise RuntimeError("a library was built, not loaded from the cache")
+    kernels._build = refuse
+    native._build = refuse
+loads = (detector_cuda._kernel_fn, detector_cuda._scans_kernel_fn, latency_cuda._kernel_fn,
+         fft_cuda._kernel_fn)
+with concurrent.futures.ThreadPoolExecutor(4) as pool:
+    for fut in [pool.submit(f) for f in loads]:
+        fut.result()
+assert native.load() is not None
+assert all(kernels.library_path(n).startswith(cache) for n in
+           ("prominence_select_scan", "prominence_scans", "lowlat_window", "halfspec_fused"))
+print(sorted(os.listdir(cache)))
+"""
+
+
+def _cache_check() -> None:
+    """Builds into an enabled build cache in a fresh process, then loads
+    every library from it in a second process whose builders raise."""
+    import tempfile
+
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    with tempfile.TemporaryDirectory(prefix="apda_cache_") as d:
+        listed = []
+        for step in ("build", "load"):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", _CACHE_CHILD, d, step], cwd=ROOT,
+                                  env=env, capture_output=True, text=True, timeout=600)
+            assert proc.returncode == 0, (step, proc.stderr[-3000:])
+            listed.append(proc.stdout.strip())
+            log(f"[25 build cache] {step}: {proc.stdout.strip()} in "
+                f"{time.perf_counter() - t0:.1f} s")
+        assert listed[0] == listed[1] and listed[0].count(".so") == 5, listed
+
+
+def _example_on_card(name: str) -> str:
+    import contextlib as _contextlib
+    import io
+    import runpy
+
+    path = os.path.join(ROOT, "apda_fft_tpu_torch", "examples", f"{name}.py")
+    out = io.StringIO()
+    with _contextlib.redirect_stdout(out):
+        runpy.run_path(path)["main"](None)
+    return out.getvalue()
+
+
+def long_row_times(card: str) -> None:
+    """B1's and B5's long-row kernels (H > 57856) at phase 5's N=131072 rows
+    (B=16, H=65536, M=32): profiler device time, CUDA-event call time and
+    the bound."""
+    long_spec = centered_mags(torch.from_numpy(long_batch()).cuda()).contiguous()
+    b, h = long_spec.shape
+    cid, is_cand, cmag = prominence_select_scan(long_spec, 32)[:3]
+    n_valid = is_cand.sum(dim=1).to(torch.int32)
+    for name, kernel, fn, work in (
+        ("B1", "select_scan_long_kernel", lambda: prominence_select_scan(long_spec, 32),
+         detector_cuda.select_scan_work(b, h, 32)),
+        ("B5", "preselected_scans_long_kernel",
+         lambda: prominence_scans(long_spec, cid, cmag, n_valid),
+         detector_cuda.scans_work(b, h, 32)),
+    ):
+        dev_ms = _kernel_device_ms(fn, kernel)
+        b_ms, b_by = bound(*work)
+        log(f"[25 long rows] {name} {kernel} B={b} H={h} M=32: device {dev_ms:.4f} ms "
+            f"(profiler mean of 20), call {event_ms(fn):.4f} ms (CUDA events), bound "
+            f"{b_ms:.6f} ms ({b_by}); {card}")
+
+
+def phase_last_slice(corpora: dict[str, np.ndarray], card: str
+                     ) -> tuple[dict[str, int], dict[str, float]]:
+    """Phase 25 (module docstring); returns the path's launches and the max
+    abs float difference of its kernel calls against their twins."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    lines = _load_module("apda_example_lines", "example_lines.py")
+    epoch_kw = dict(n_fft=N_FFT, mode="flexible", refine=True, lowlat="never")
+    xs = {name: torch.from_numpy(x).cuda() for name, x in corpora.items()}
+
+    # Times, before anything is tapped or counted.
+    xc = xs["noisy"] - xs["noisy"].mean(dim=-1, keepdim=True)
+    fe = {}
+    for prec in ("highest", "fast", "fast", "highest"):
+        fe.setdefault(prec, []).append(event_ms(
+            lambda: halfspec_magnitudes(xc, backend="matmul", precision=prec)))
+    log(f"[25 fast times] four-step front end B={BATCH} N={N_FFT}: highest "
+        f"{' / '.join(f'{t:.4f}' for t in fe['highest'])} ms, fast "
+        f"{' / '.join(f'{t:.4f}' for t in fe['fast'])} ms (CUDA events, median of "
+        f"{TIMING_RUNS}; {card})")
+    clean = xs["clean"]
+    ev = event_ms(lambda: pipeline.analyze_epoch(clean, FS, **epoch_kw))
+    st = benchtime.per_iteration_stats(lambda x: pipeline.analyze_epoch(x, FS, **epoch_kw), clean)
+    log(f"[25 benchtime] clean epoch: per_iteration_stats {st} against CUDA events "
+        f"{ev:.4f} ms (median of {TIMING_RUNS}); {card}")
+    assert st["per_iter_s"] > 0 and st["iters"] > 0, st
+    # The long-row kernels' device times come from a fresh process: after
+    # the earlier phases' profiler sessions, one in this process recorded 7
+    # of 21 launches of B1's long-row kernel, three sessions in a row.
+    proc = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
+                           "chip_smoke.long_row_times(sys.argv[1])", card], cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": ROOT}, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    log(proc.stdout.strip())
+
+    # "highest" beside "fast" in two threads, outside the taps: the fast
+    # thread's magnitudes depend on how the threads overlap (a fast call
+    # runs in IEEE while a highest one is inside), and B1 sums its
+    # threshold in another order than its plain twin (ROADMAP.md §C), so a
+    # fresh row can flip a candidate that sits on the threshold.  The
+    # highest results are held bit-equal to a lone run, whose B1 call is
+    # tapped below.
+    noisy = xs["noisy"]
+    lone = pipeline.analyze_epoch(noisy, FS, max_candidates=32, **epoch_kw)
+    got, errors = [], []
+
+    def worker(prec: str) -> None:
+        try:
+            for _ in range(10):
+                r = pipeline.analyze_epoch(noisy, FS, precision=prec, max_candidates=32,
+                                           **epoch_kw)
+                if prec == "highest":
+                    got.append(r)
+        except BaseException as exc:  # noqa: BLE001 - re-raised below
+            errors.append(exc)
+            raise
+
+    pair = [threading.Thread(target=worker, args=(p,)) for p in ("highest", "fast")]
+    for t in pair:
+        t.start()
+    for t in pair:
+        t.join(timeout=300)
+    assert not errors and not any(t.is_alive() for t in pair), errors
+    assert len(got) == 10
+    for r in got:
+        for field in lone._fields:
+            assert torch.equal(getattr(r, field), getattr(lone, field)), field
+    log("[25 threads] 10 highest epochs beside 10 fast ones in another thread: every "
+        "highest result bit-equal to a lone run")
+
+    # The CPU runs of the examples overlap the card's work from here on.
+    cpu_env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1"}
+    cpu_runs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"apda_fft_tpu_torch.examples.{name}", "--device", "cpu"],
+        cwd=ROOT, env=cpu_env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in EXAMPLES}
+    try:
+        _zero_counts()
+        with _Taps() as taps:
+            for name, x in xs.items():
+                res = {}
+                for prec in ("highest", "fast"):
+                    pipeline.analyze_epoch(x, FS, precision=prec, **epoch_kw)  # learn the budget
+                    res[prec] = pipeline.analyze_epoch(x, FS, precision=prec, **epoch_kw)
+                differ = int(((res["fast"].count != res["highest"].count)
+                              | (res["fast"].idx != res["highest"].idx).any(dim=1)).sum())
+                mags = halfspec_magnitudes(x - x.mean(dim=-1, keepdim=True), backend="matmul",
+                                           precision="fast").cpu().numpy().astype(np.float64)
+                xd = corpora[name].astype(np.float64)
+                ref = np.abs(np.fft.rfft(xd - xd.mean(axis=-1, keepdims=True))[:, :N_FFT // 2])
+                ref[:, 0] = 0
+                err = float(np.linalg.norm(mags - ref) / np.linalg.norm(ref))
+                log(f"[25 fast] {name} epoch B={BATCH}: fast magnitudes {err:.3e} normwise "
+                    f"from float64 numpy.fft (bound {fft_ops.FAST_NORMWISE_BOUND:g}); "
+                    f"{differ} of {BATCH} windows decide otherwise than at highest; count>0 "
+                    f"in {int((res['fast'].count > 0).sum())} windows")
+                assert err <= fft_ops.FAST_NORMWISE_BOUND, (name, err)
+                assert bool(torch.isfinite(res["fast"].freq).all())
+
+            again = pipeline.analyze_epoch(noisy, FS, max_candidates=32, **epoch_kw)
+            for field in lone._fields:
+                assert torch.equal(getattr(again, field), getattr(lone, field)), field
+            on_card = {name: _example_on_card(name) for name in EXAMPLES}
+            torch.cuda.synchronize()
+            counts = _counts()
+            err = taps.check("25 last slice")
+        log(f"[25 launches] {counts}")
+        assert counts["prominence_select_scan"] > 0 and counts["lowlat_flexible"] > 0, counts
+        for name in EXAMPLES:
+            out, err_text = cpu_runs[name].communicate(timeout=600)
+            assert cpu_runs[name].returncode == 0, (name, err_text[-3000:])
+            bad = lines.mismatches(on_card[name], out)
+            assert not bad, (name, bad[:5])
+            log(f"[25 examples] {name}: {len(lines.mask(out))} lines on the card match "
+                f"--device cpu")
+    finally:
+        for proc in cpu_runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+    with tempfile.TemporaryDirectory(prefix="apda_trace_") as d:
+        with profiling.trace(d):
+            pipeline.analyze_epoch(xs["noisy"], FS, **epoch_kw)
+            torch.cuda.synchronize()
+        files = os.listdir(d)
+        assert files, "trace wrote no file"
+        with open(os.path.join(d, files[0])) as fh:
+            text = fh.read()
+        assert "select_scan_kernel" in text, files
+        log(f"[25 trace] {files[0]}: {len(text)} bytes, names select_scan_kernel")
+    stats = profiling.compiled_stats(pipeline.analyze_epoch, clean, FS, **epoch_kw)
+    log(f"[25 compiled_stats] clean epoch: {stats}")
+    assert stats["flops"] > 0 and stats["memory_mb"] > 0 and stats["bytes_accessed"] > 0, stats
+    _cache_check()
+    log(f"[25 elapsed] phase 25 in {time.perf_counter() - t_phase:.1f} s; {card}")
+    return counts, err
+
+
 def main() -> int:
     t0 = time.perf_counter()
     card = phase_device()
@@ -3005,22 +3269,22 @@ def main() -> int:
     log(f"[22 elapsed] phases 1-22 in {time.perf_counter() - t0:.1f} s")
     paths["mesh"] = phase_mesh(corpora, arrays, signals, card)
     phase_cli(signals, card)
-    log(f"[24 launches] by path: { {name: launches for name, (launches, _) in paths.items()} }")
+    paths["last slice"] = phase_last_slice(corpora, card)
+    log(f"[25 launches] by path: { {name: launches for name, (launches, _) in paths.items()} }")
     path_launches = {key: sum(p[0][key] for p in paths.values()) for key in _counts()}
     path_err = _max_err(*(err for _, err in paths.values()))
-    log(f"[24 elapsed] phases 1-24 in {time.perf_counter() - t0:.1f} s")
+    log(f"[25 elapsed] phases 1-25 in {time.perf_counter() - t0:.1f} s")
 
-    h, m12 = N_FFT // 2, 12
+    h = N_FFT // 2
     # Per kernel, at the shapes its time was taken at: (bytes of its inputs
-    # and outputs, float32 operations of |rfft|).  The DFT tables are the
-    # four-step's, not the function's, so they count in neither; B2/B3's
-    # detector operations are left out, which keeps the bound a lower one.
+    # and outputs, float32 operations), from the count beside each wrapper
+    # (the counts utils.profiling.compiled_stats adds up).
     work = {
-        "prominence_select_scan": (BATCH * h * 4 + BATCH * m12 * 17 + BATCH * 8, 0),
-        "lowlat_flexible": (N_FFT * 4 + 4 + 4 * (4 + 3 + 6 * 4), rfft_mag_flops(N_FFT)),
-        "lowlat_rigid": (1024 * 4 + 4 + 4 * (5 + 3 + 6 * 5), rfft_mag_flops(1024)),
-        "halfspec_fused": (BATCH * N_FFT * 6, BATCH * rfft_mag_flops(N_FFT)),
-        "prominence_scans": (BATCH * h * 4 + BATCH * 32 * 16 + BATCH * 4, 0),
+        "prominence_select_scan": detector_cuda.select_scan_work(BATCH, h, 12),
+        "lowlat_flexible": latency_cuda.lowlat_work(N_FFT, 4),
+        "lowlat_rigid": latency_cuda.lowlat_work(1024, 5),
+        "halfspec_fused": fft_cuda.halfspec_work(BATCH, N_FFT),
+        "prominence_scans": detector_cuda.scans_work(BATCH, h, 32),
     }
     rows = [{
         "name": "prominence_select_scan",

@@ -152,8 +152,16 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 def test_prominence_peaks_rejects_other_selections():
-    with pytest.raises(ValueError, match="only 'auto'"):
-        tprom.prominence_peaks(torch.zeros((1, 64)), 500.0, 128, selection="topk")
+    """The JAX package's selection names are one order in the port; any
+    other name raises the JAX package's error."""
+    mags = torch.from_numpy(_spectra(8, 256, seed=3, kind="ties"))
+    want = tprom.prominence_peaks(mags, 500.0, 512, max_candidates=12)
+    for selection in tprom.SELECTIONS:
+        got = tprom.prominence_peaks(mags, 500.0, 512, max_candidates=12, selection=selection)
+        for name in want._fields:
+            assert torch.equal(getattr(got, name), getattr(want, name)), (selection, name)
+    with pytest.raises(ValueError, match="expected 'auto', 'argmax', 'topk' or 'sort'"):
+        tprom.prominence_peaks(torch.zeros((1, 64)), 500.0, 128, selection="top_k")
 
 
 @pytest.mark.parametrize("fs", [500.0, 100.3])

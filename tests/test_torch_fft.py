@@ -50,8 +50,9 @@ def test_halfspec_leading_batch_shape():
 
 def test_halfspec_rejects_unported_modes():
     x = torch.zeros((2, 256))
-    with pytest.raises(NotImplementedError, match="fast"):
-        tfft.halfspec_magnitudes(x, precision="fast")
+    for backend in ("xla", "pallas"):
+        with pytest.raises(ValueError, match="matmul backend only"):
+            tfft.halfspec_magnitudes(x, backend=backend, precision="fast")
     with pytest.raises(ValueError, match="unknown FFT backend"):
         tfft.halfspec_magnitudes(x, backend="cufft")
     with pytest.raises(ValueError, match="unknown precision"):
@@ -158,10 +159,10 @@ def test_halfspec_multithreaded_cpu_matches_one_thread():
     threads = torch.get_num_threads()
     try:
         torch.set_num_threads(1)
-        want = tfft.halfspec_magnitudes(x).numpy()
+        want = tfft.halfspec_magnitudes(x, backend="matmul").numpy()
         torch.set_num_threads(8)
         for _ in range(5):
-            got = tfft.halfspec_magnitudes(x).numpy()
+            got = tfft.halfspec_magnitudes(x, backend="matmul").numpy()
             rows = np.linalg.norm(got - want, axis=-1) / np.linalg.norm(want, axis=-1)
             assert rows.max() <= 1e-6, np.flatnonzero(rows > 1e-6)
     finally:
@@ -169,7 +170,7 @@ def test_halfspec_multithreaded_cpu_matches_one_thread():
 
 
 @pytest.mark.parametrize("transform", [
-    lambda x: tfft.halfspec_magnitudes(x),
+    lambda x: tfft.halfspec_magnitudes(x, backend="matmul"),
     lambda x: tfft.fft_matmul_real(x, half=True),
     tfft.rfft_packed_matmul,
 ], ids=["halfspec", "complex", "packed"])
@@ -212,7 +213,7 @@ def test_one_cpu_thread_guard_thread_stress(monkeypatch):
 
     def work():
         for _ in range(50):
-            tfft.halfspec_magnitudes(x)
+            tfft.halfspec_magnitudes(x, backend="matmul")
 
     threads_before, interval = torch.get_num_threads(), sys.getswitchinterval()
     try:

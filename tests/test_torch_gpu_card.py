@@ -526,3 +526,97 @@ def test_card_results_gathered_on_cpu_shards_match():
     grid = tmesh.make_mesh(4, ("data", "seq"), (2, 2), devices=["cpu"] * 4)
     np.testing.assert_array_equal(distributed_halfspec_magnitudes(w.cuda(), grid).numpy(),
                                   distributed_halfspec_magnitudes(w, grid).numpy())
+
+
+@pytest.mark.gpu
+def test_timers_and_profiling_on_the_card(tmp_path):
+    """``utils/benchtime.py`` and ``utils/profiling.py`` on a card epoch."""
+    _need_card()
+    from apda_fft_tpu_torch.utils import benchtime, profiling
+
+    signals = _load("signals")
+    x = torch.from_numpy(np.stack([signals.modal_signal(4096, FS, seed=s)
+                                   for s in range(256)]).astype(np.float32)).cuda()
+
+    def epoch(w):
+        return tpipe.analyze_epoch(w, FS, refine=True, lowlat="never")
+
+    st = benchtime.per_iteration_stats(epoch, x, iters=8, reps=2)
+    assert st["per_iter_s"] > 0 and st["iters"] == 8 and st["dispatch_s"] >= 0
+    assert benchtime.pipelined_wall_seconds(epoch, x, depth=4, reps=1) > 0
+    stats = profiling.compiled_stats(epoch, x)
+    assert stats["flops"] > 0 and stats["bytes_accessed"] > 0 and stats["memory_mb"] > 0
+    with profiling.trace(str(tmp_path)):
+        epoch(x)
+        torch.cuda.synchronize()
+    (trace,) = tmp_path.iterdir()
+    assert "select_scan_kernel" in trace.read_text()
+
+
+@pytest.mark.gpu
+def test_fast_precision_on_the_card():
+    """``precision="fast"``: magnitudes within the stated bound of float64,
+    "highest" within 1e-6; a "highest" epoch beside a fast one in another
+    thread is bit-equal to a lone one."""
+    _need_card()
+    import threading
+
+    from apda_fft_tpu_torch.ops import fft as tfft
+
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((512, 4096)).astype(np.float32)
+    ref = np.abs(np.fft.rfft(x.astype(np.float64))[:, :2048])
+    ref[:, 0] = 0
+    xt = torch.from_numpy(x).cuda()
+    for prec, bound in (("fast", tfft.FAST_NORMWISE_BOUND), ("highest", 1e-6)):
+        got = tfft.halfspec_magnitudes(xt, backend="matmul", precision=prec).cpu().numpy()
+        assert np.linalg.norm(got - ref) / np.linalg.norm(ref) <= bound, prec
+    lone = tpipe.analyze_epoch(xt, FS, max_candidates=32, lowlat="never")
+    got = []
+
+    def run(prec):
+        for _ in range(5):
+            r = tpipe.analyze_epoch(xt, FS, max_candidates=32, lowlat="never", precision=prec)
+            if prec == "highest":
+                got.append(r)
+
+    threads = [threading.Thread(target=run, args=(p,)) for p in ("highest", "fast")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and len(got) == 5
+    for r in got:
+        for name in lone._fields:
+            assert torch.equal(getattr(r, name), getattr(lone, name)), name
+
+
+@pytest.mark.gpu
+def test_n_required_is_the_smallest_exact_budget_on_b1():
+    """``tests/test_peaks_match.py``'s n_required contract through B1: at
+    ``max_candidates == n_required`` the card decides as the float64
+    oracle; below it, it reports n_required above the budget."""
+    _need_card()
+    signals, oracle = _load("signals"), _load("oracle")
+    for seed, n, fs in [(7, 4096, 500.0), (11, 4096, 250.0), (3, 8192, 62.5)]:
+        rng = np.random.default_rng(seed)
+        x = (signals.modal_signal(n, fs, seed=seed)
+             + 0.3 * rng.standard_normal(n)).astype(np.float32)
+        xt = torch.from_numpy(x[None]).cuda()
+
+        def run(budget):
+            return tpipe.analyze_epoch(xt, fs, mode="flexible", max_candidates=budget,
+                                       lowlat="never")
+
+        before = detector_cuda.launches
+        full = run(n // 2)
+        assert detector_cuda.launches > before
+        nreq, ncand = int(full.n_required[0]), int(full.n_candidates[0])
+        assert 1 <= nreq <= ncand
+        want = [p["idx"] for p in oracle.oracle_analyze(x, fs, mode="flexible")]
+        for budget in (nreq, nreq + 3):
+            res = run(budget)
+            assert res.idx[0, :int(res.count[0])].tolist() == want, (seed, budget)
+            assert int(res.n_required[0]) == nreq
+        if nreq > 1:
+            assert int(run(nreq - 1).n_required[0]) > nreq - 1

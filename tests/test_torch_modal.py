@@ -467,7 +467,8 @@ def test_fdd_validation_matches_jax():
 def test_fdd_leaves_out_the_sharded_run_and_other_selections():
     """The sharded run (``mesh=``) is ported now and decides as the
     single-device run (``tests/test_torch_parallel.py`` holds it against
-    the JAX package's); other selections are still left out."""
+    the JAX package's); the JAX package's selection names decide alike,
+    and an unknown one raises."""
     from apda_fft_tpu_torch.parallel.mesh import make_mesh
 
     x = _fuzz_case(0)[0]
@@ -476,6 +477,8 @@ def test_fdd_leaves_out_the_sharded_run_and_other_selections():
     assert sharded.count == one.count
     np.testing.assert_array_equal(sharded.idx, one.idx)
     np.testing.assert_array_equal(sharded.freq, one.freq)
+    by_sort = tm.fdd(x, 100.0, 512, selection="sort", device="cpu")
+    np.testing.assert_array_equal(by_sort.idx, one.idx)
     with pytest.raises(ValueError, match="auto"):
         tm.fdd(x, 100.0, 512, selection="top_k", device="cpu")
 

@@ -1,5 +1,5 @@
-"""The port, its chip scripts and its card-side tests import neither JAX nor
-the JAX package.
+"""The port, its examples, its chip scripts and its card-side tests import
+neither JAX nor the JAX package.
 
 The machine with the card has no JAX installed, so any such import would
 break the port there.  Checked in a fresh interpreter: this test process has
@@ -47,11 +47,24 @@ import apda_fft_tpu_torch.parallel
 import apda_fft_tpu_torch.parallel.distributed_fft
 import apda_fft_tpu_torch.parallel.dryrun
 import apda_fft_tpu_torch.parallel.mesh
+import apda_fft_tpu_torch.examples
+import apda_fft_tpu_torch.examples.drift_monitoring
+import apda_fft_tpu_torch.examples.gateway_simulation
+import apda_fft_tpu_torch.examples.harmonics_and_mixed_rates
+import apda_fft_tpu_torch.examples.modal_fdd
+import apda_fft_tpu_torch.examples.quickstart
+import apda_fft_tpu_torch.examples.severity_and_shock
+import apda_fft_tpu_torch.examples.welch_and_taper
+import apda_fft_tpu_torch.ops.peaks_prominence
+import apda_fft_tpu_torch.ops.stats
+import apda_fft_tpu_torch.utils.benchtime
+import apda_fft_tpu_torch.utils.compilecache
 import apda_fft_tpu_torch.utils.kernels
 import apda_fft_tpu_torch.utils.profiling
 import apda_fft_tpu_torch.utils.synthetic
 import chip_smoke
 import chip_profile
+import tests.example_lines
 import tests.test_torch_gateway_parity
 import tests.test_torch_gpu_card
 bad = sorted(m for m in sys.modules

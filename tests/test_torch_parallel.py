@@ -443,8 +443,19 @@ def test_mesh_construction_and_shard_batch(monkeypatch):
         tmesh.make_mesh(8, ("data", "seq"), shape=(3, 2), devices=CPU8)
     with pytest.raises(ValueError, match="not n_devices"):
         tmesh.make_mesh(4, devices=CPU8)
-    with pytest.raises(ValueError, match="batch_chunk"):
-        tmesh.analyze_epoch_sharded(_windows(8, 256), 500.0, mesh=mesh, batch_chunk=64)
+    # batch_chunk chunks within each shard and lowlat is accepted, as in the
+    # JAX package: decisions equal JAX's sharded run and the single device.
+    x = np.random.default_rng(0).standard_normal((256, 256)).astype(np.float32)
+    jm, tm = _mesh()
+    want = jmesh.analyze_epoch_sharded(x, 500.0, mesh=jm, batch_chunk=64)
+    single = tpipe.analyze_epoch(x, 500.0, device="cpu")
+    for lowlat in ("auto", "never"):
+        got = tmesh.analyze_epoch_sharded(x, 500.0, mesh=tm, batch_chunk=64, lowlat=lowlat)
+        for name in ("idx", "count"):
+            np.testing.assert_array_equal(_np(getattr(got, name)), _np(getattr(want, name)))
+            np.testing.assert_array_equal(_np(getattr(got, name)), _np(getattr(single, name)))
+    with pytest.raises(ValueError, match="unknown lowlat"):
+        tmesh.analyze_epoch_sharded(_windows(8, 256), 500.0, mesh=mesh, lowlat="always")
     with pytest.raises(ValueError, match="unknown mode"):
         tmesh.analyze_epoch_sharded(_windows(8, 256), 500.0, mesh=mesh, mode="nope")
     empty = tmesh.analyze_epoch_sharded(np.zeros((0, 256), np.float32), 500.0, mesh=mesh)

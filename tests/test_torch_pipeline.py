@@ -284,7 +284,8 @@ def test_empty_epoch():
 
 @pytest.mark.parametrize("kw,match", [
     ({"lowlat": "always"}, "lowlat"),
-    ({"selection": "topk"}, "selection"),
+    ({"selection": "top_k"}, "selection"),
+    ({"precision": "fast", "backend": "xla"}, "matmul backend only"),
     ({"mode": "modal"}, "mode"),
     ({"max_candidates": 2.5}, "max_candidates"),
     ({"center": "median"}, "center"),
@@ -309,9 +310,13 @@ def test_pallas_backend_runs():
 
 
 def test_fast_precision_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="fast"):
-        tpipe.analyze_epoch(np.zeros((2, 256), np.float32), FS, precision="fast",
-                            max_candidates=4, device="cpu")
+    """``precision="fast"`` is ported now (TF32 products on the card); the
+    CPU has no TF32, so on the CPU its epoch is bit-equal to "highest"."""
+    x = _modal_windows(4, 1024, seed0=300)
+    fast = tpipe.analyze_epoch(x, FS, precision="fast", refine=True, device="cpu")
+    best = tpipe.analyze_epoch(x, FS, precision="highest", refine=True, device="cpu")
+    for name in best._fields:
+        assert torch.equal(getattr(fast, name), getattr(best, name)), name
 
 
 def test_arrays_run_on_the_card_by_default(monkeypatch):

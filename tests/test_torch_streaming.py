@@ -206,7 +206,7 @@ def test_analyze_welch_options_and_validation():
                       (dict(detrend="linear"), "unknown detrend"),
                       (dict(precision="low"), "precision"),
                       (dict(precision="fast", backend="xla"), "matmul backend only"),
-                      (dict(selection="topk"), "selection")):
+                      (dict(selection="top_k"), "selection")):
         with pytest.raises(ValueError, match=match):
             tstream.analyze_welch(x, FS, window=1024, device="cpu", **kw)
 
