@@ -81,6 +81,24 @@ __device__ __forceinline__ float score_of(float v) {
 
 // Noise threshold mean + 2*std (ddof=1) of x[0..h), in two passes like the
 // reference (sum -> mean, then the sum of squared deviations / (h-1)).
+//
+// THE THRESHOLD ORDER of the select+scan detector (B1), a function of h
+// alone, which its plain twin (ops/stats.py `ordered_mean_std`) follows bit
+// for bit.  Each sum - the bins, then the squared deviations about the
+// rounded mean, each d = x - mean and d*d rounded - is taken so:
+//   * h <= kSharedMaxH (57856; this function in a block of 128 threads, or
+//     of roundup32(h) below h = 128, whose missing lanes would add +0.0 and
+//     leave every rounded result unchanged): 128 lanes, lane l adding
+//     x[l], x[l+128], ... in increasing index with plain rounded adds from
+//     +0.0; then block_reduce: the xor butterfly at offsets 16, 8, 4, 2, 1
+//     within each warp of 32 lanes, then the four warp sums in order;
+//   * longer rows (prominence_select_scan.cu's cluster kernel): kClusterSize
+//     contiguous segments of segment_bins(h) bins (a whole number of 128-lane
+//     strides; the last segment shorter), CTA r summing segment r like a
+//     short row but with Kahan-compensated lanes run over whole strides (the
+//     missing bins of the last segment are +0.0 terms, which a compensated
+//     lane does not skip), the lane's running sum taken as its value; then
+//     the segments' partials added in rank order.
 template <typename S>
 __device__ float noise_threshold(const float* x, int h, S& sc, float* sd_out) {
   float s = 0.f;

@@ -21,14 +21,16 @@
 // outward from cid over the chunk summaries - a few ballots a walk, not H.
 // Rows too long for the summaries beside them walk bin by bin.  A row
 // longer than shared memory holds (h > kSharedMaxH) takes a second kernel,
-// picked on the host: the row stays in device memory, read through the
-// caches, and its summaries go to shared memory (to a global workspace the
-// wrapper allocates past ~930 K bins).  A row with no valid slot writes its
-// fill and loads nothing.  On the select+scan kernel's
-// picks the results are that kernel's bits (the same warp_scan_at).
+// picked on the host: one thread-block cluster of kClusterSize CTAs a row
+// (cluster_common.cuh), CTA r holding segment r of the row (in device
+// memory past ~437 K bins) and its chunk summaries, the valid slots spread
+// over the cluster's warps, each walking the CTAs' bins and summaries over
+// distributed shared memory.  A row with no valid slot writes its fill and
+// loads nothing.  On the select+scan kernel's picks the results are that
+// kernel's bits (the same warp walks).
 // Build without fast math.
 
-#include "walk_common.cuh"
+#include "cluster_common.cuh"
 
 namespace {
 
@@ -43,11 +45,6 @@ constexpr int kSharedMaxH = (int)(kSmemCap / sizeof(float));
 
 __host__ __device__ __forceinline__ bool has_summaries(int h) {
   return 4LL * h + 8LL * n_chunks(h) <= (long long)kSmemCap;
-}
-
-// A row past kSharedMaxH: whether its chunk summaries fit in shared memory.
-__host__ __device__ __forceinline__ bool long_summaries_in_smem(int h) {
-  return 8LL * n_chunks(h) <= (long long)kSmemCap;
 }
 
 // kThreads threads a block and at most 32 registers a thread: 2048 threads
@@ -91,57 +88,91 @@ preselected_scans_kernel(const float* __restrict__ mags, int h, int m,
   }
 }
 
-// The kernel's steps for a row past kSharedMaxH, kept out of the kernel
-// above so that its compiled code stays as it was: the row is read from
-// device memory, its chunk summaries go to shared memory while they fit,
-// else to `ws` (2*n_chunks(h) floats a row).
+// Whether a cluster CTA keeps its segment in shared memory beside its
+// chunk summaries (h <= 437248), and whether it then also holds the whole
+// row's summaries (h <= 309248, and 437249..929792 beside a segment in
+// device memory); its own summaries always are.
+__host__ __device__ __forceinline__ bool segment_in_smem(int h) {
+  const long long seg = segment_bins(h);
+  return 8LL * (seg / 32) + 4LL * seg <= (long long)kSmemCap;
+}
+
+__host__ __device__ __forceinline__ bool whole_summaries(int h) {
+  const long long seg = segment_bins(h);
+  return 8LL * kClusterSize * (seg / 32) + (segment_in_smem(h) ? 4LL * seg : 0) <=
+         (long long)kSmemCap;
+}
+
+// Dynamic shared memory of one CTA of the cluster kernel: the chunk maxima
+// and minima (of the whole row, or of its segment), then the segment.
+__host__ __device__ __forceinline__ size_t cluster_smem(int h) {
+  const size_t seg = segment_bins(h);
+  return 8 * (whole_summaries(h) ? kClusterSize : 1) * (seg / 32) +
+         (segment_in_smem(h) ? 4 * seg : 0);
+}
+
+// A row past kSharedMaxH on one cluster of kClusterSize CTAs
+// (blockIdx.x / kClusterSize is the row): each CTA builds its segment's
+// summaries, a cluster barrier publishes them, the cluster's warps take the
+// valid slots round-robin, and a last barrier keeps every CTA's shared
+// memory until no walk may read it.
 template <int kThreads>
-__global__ void __launch_bounds__(kThreads, 2048 / kThreads)
-preselected_scans_long_kernel(const float* __restrict__ mags, int h, int m,
-                              const int* __restrict__ cid, const float* __restrict__ cmag,
-                              const int* __restrict__ n_valid, float* __restrict__ prom,
-                              int* __restrict__ bins, float* ws) {
+__global__ void __launch_bounds__(kThreads)
+preselected_scans_cluster_kernel(const float* __restrict__ mags, int h, int m,
+                                 const int* __restrict__ cid, const float* __restrict__ cmag,
+                                 const int* __restrict__ n_valid, float* __restrict__ prom,
+                                 int* __restrict__ bins) {
   extern __shared__ __align__(16) float smem[];
+  constexpr int kWarps = kThreads / 32;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const size_t row = blockIdx.x;
+  const size_t row = blockIdx.x / kClusterSize;
   const size_t o = row * (size_t)m;
   const int live = min(max(n_valid[row], 0), m);
-  for (int r = live + tid; r < m; r += kThreads) {
+  for (int r = live + rank * kThreads + tid; r < m; r += kClusterSize * kThreads) {
     prom[o + r] = 0.f;
     bins[o + r] = 1;
   }
-  if (live == 0) return;  // the whole block: no barrier follows
+  if (live == 0) return;  // every CTA of the row: no cluster barrier follows
+  const int seg = segment_bins(h);
+  const int lo = rank * seg;
+  const int n = max(0, min(seg, h - lo));
   const float* x = mags + row * (size_t)h;
-  float* sums = long_summaries_in_smem(h) ? smem : ws + row * 2 * (size_t)n_chunks(h);
-  const Summaries sm = {sums, sums + n_chunks(h)};
-  build_summaries(x, h, sm);
-  __syncthreads();
-  for (int r = warp; r < live; r += kThreads / 32) {
+  const bool whole = whole_summaries(h);
+  const int sums = (whole ? kClusterSize : 1) * (seg / 32);
+  const int own = whole ? rank * (seg / 32) : 0;  // this CTA's chunks
+  float* smax = smem;
+  float* smin = smax + sums;
+  float* xs = segment_in_smem(h) ? smin + sums : nullptr;
+  if (xs != nullptr) {
+    load_segment(x + lo, xs, n);
+    __syncthreads();
+  }
+  build_summaries(xs != nullptr ? xs : x + lo, n, Summaries{smax + own, smin + own});
+  cluster.sync();
+  if (whole) {
+    gather_summaries(smax, smin, seg / 32);
+    __syncthreads();
+  }
+  const ClusterRow view = {x, xs, smax, smin, seg, whole};
+  for (int r = rank * kWarps + (tid >> 5); r < live; r += kClusterSize * kWarps) {
     const int j = min(max(cid[o + r], -1), h);  // as in the kernel above
     float pr;
     int bn;
-    warp_scan_at(x, h, j, cmag[o + r], sm, &pr, &bn);
+    warp_scan_row(view, h, j, cmag[o + r], &pr, &bn);
     if ((tid & 31) == 0) {
       prom[o + r] = pr;
       bins[o + r] = bn;
     }
   }
+  cluster.sync();
 }
 
-// Shared memory of one block and floats of global workspace of one launch
-// over b rows of h bins.
-struct Plan {
-  size_t smem;
-  size_t ws_floats;
-};
-
-Plan plan(int b, int h) {
-  const size_t sums = 8 * (size_t)n_chunks(h);
-  if (h > kSharedMaxH) {
-    return long_summaries_in_smem(h) ? Plan{sums, 0} : Plan{0, (size_t)b * sums / 4};
-  }
-  return {(size_t)h * sizeof(float) + (has_summaries(h) ? sums : 0), 0};
+// Shared memory of one block of the shared-memory kernel over rows of h
+// bins.
+size_t plan(int h) {
+  return (size_t)h * sizeof(float) + (has_summaries(h) ? 8 * (size_t)n_chunks(h) : 0);
 }
 
 // Dynamic shared memory past 48 KB needs the opt-in, once per kernel and
@@ -158,56 +189,48 @@ cudaError_t opt_in(Kernel kernel, size_t smem, int device, size_t* opted_in) {
 }
 
 template <int kThreads>
-cudaError_t launch(const float* mags, int b, int h, int m, const int* cid, const float* cmag,
-                   const int* n_valid, float* prom, int* bins, float* ws, int device,
-                   cudaStream_t stream) {
-  const Plan p = plan(b, h);
+int launch(const float* mags, int b, int h, int m, const int* cid, const float* cmag,
+           const int* n_valid, float* prom, int* bins, int device, cudaStream_t stream) {
   static size_t opted_in[2][64];
-  cudaError_t err;
   if (h > kSharedMaxH) {
-    err = opt_in(preselected_scans_long_kernel<kThreads>, p.smem, device, opted_in[1]);
-    if (err != cudaSuccess) return err;
-    preselected_scans_long_kernel<kThreads><<<b, kThreads, p.smem, stream>>>(
-        mags, h, m, cid, cmag, n_valid, prom, bins, ws);
-  } else {
-    err = opt_in(preselected_scans_kernel<kThreads>, p.smem, device, opted_in[0]);
-    if (err != cudaSuccess) return err;
-    preselected_scans_kernel<kThreads><<<b, kThreads, p.smem, stream>>>(mags, h, m, cid, cmag,
-                                                                        n_valid, prom, bins);
+    const size_t smem = cluster_smem(h);
+    if (smem > kSmemCap) return (int)cudaErrorInvalidValue;  // past ~7 M bins
+    return launch_clusters(preselected_scans_cluster_kernel<kThreads>, b * kClusterSize,
+                           kThreads, smem, stream, device, opted_in[1], mags, h, m, cid, cmag,
+                           n_valid, prom, bins);
   }
-  return cudaGetLastError();
+  const size_t smem = plan(h);
+  const cudaError_t err = opt_in(preselected_scans_kernel<kThreads>, smem, device, opted_in[0]);
+  if (err != cudaSuccess) return (int)err;
+  preselected_scans_kernel<kThreads><<<b, kThreads, smem, stream>>>(mags, h, m, cid, cmag,
+                                                                    n_valid, prom, bins);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of global workspace a launch over b rows of h bins needs (0 when
-// everything fits in shared memory).
-long long apda_scans_workspace_floats(int b, int h) { return (long long)plan(b, h).ws_floats; }
+// Dynamic shared memory of one CTA of the cluster kernel, for a row past
+// kSharedMaxH (the wrapper's message when a cluster cannot be placed).
+long long apda_scans_cluster_smem(int h) { return (long long)cluster_smem(h); }
 
 // Launches the kernel over `b` rows of `mags` ([b, h] float32, contiguous)
 // with the slots cid/cmag ([b, m] int32/float32) and n_valid ([b] int32) on
 // `stream`, in blocks of `threads` (128 or 256); outputs are prom/bins
-// [b, m] float32/int32.  `ws` holds apda_scans_workspace_floats(b, h)
-// floats (may be null when that is 0).  Returns the cudaError_t of the
-// launch (0 on success).
+// [b, m] float32/int32.  Rows past kSharedMaxH take the cluster kernel.
+// Returns the cudaError_t of the launch (0 on success), or
+// kClusterNotPlaced when not one cluster fits on the device.
 int apda_prominence_scans(const float* mags, int b, int h, int m, const int* cid,
                           const float* cmag, const int* n_valid, float* prom, int* bins,
-                          float* ws, int threads, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+                          int threads, int device, void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (b <= 0 || m <= 0) return 0;
-  if (plan(b, h).ws_floats > 0 && ws == nullptr) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (threads == 128) {
-    err = launch<128>(mags, b, h, m, cid, cmag, n_valid, prom, bins, ws, device, s);
-  } else if (threads == 256) {
-    err = launch<256>(mags, b, h, m, cid, cmag, n_valid, prom, bins, ws, device, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return (int)err;
+  if (threads == 128) return launch<128>(mags, b, h, m, cid, cmag, n_valid, prom, bins, device, s);
+  if (threads == 256) return launch<256>(mags, b, h, m, cid, cmag, n_valid, prom, bins, device, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* apda_cuda_error_string(int code) {

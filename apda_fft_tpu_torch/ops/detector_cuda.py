@@ -16,10 +16,10 @@ Counterpart of ``apda_fft_tpu/ops/detector_pallas.py``:
 Dispatch is by the tensor's device: a CPU tensor runs the plain twin
 (:func:`_prominence_select_scan_plain`, :func:`_prominence_scans_plain`); a
 CUDA tensor launches the kernel or raises.  ``launches`` and
-``scan_launches`` count kernel launches.  Both kernels take rows of any
-length: a row that does not fit in a block's shared memory stays in device
-memory, and the wrapper allocates the global workspace the kernel asks for
-its chunk summaries when they do not fit either.
+``scan_launches`` count kernel launches.  Both kernels take rows past a
+block's shared memory (B1 from H = 57857, B5 from 58113, up to a few
+million bins) on one thread-block cluster of ``CLUSTER_SIZE`` CTAs a row;
+such a launch that the card refuses, or cannot place, raises.
 """
 
 from __future__ import annotations
@@ -34,17 +34,33 @@ from apda_fft_tpu_torch.ops.peaks_prominence import (
     prominence_finalize,
     prominence_select,
 )
+from apda_fft_tpu_torch.ops.stats import THRESHOLD_CLUSTER, THRESHOLD_SHARED_MAX_H
 from apda_fft_tpu_torch.utils import kernels
 
 #: Select+scan kernel launches so far (one per call on a CUDA tensor with rows).
 launches = 0
 #: Scans-only kernel launches so far (one per call on a CUDA tensor with slots).
 scan_launches = 0
+#: Of those, launches of each wrapper's cluster kernel (rows past
+#: ``SELECT_SCAN_SHARED_MAX_H`` / ``SCANS_SHARED_MAX_H``).
+cluster_launches = 0
+cluster_scan_launches = 0
 
 #: Threads of a scans-kernel block, 128 or 256 (both keep 2048 threads on
 #: an SM): within 2 % of each other at M=32 on an H100
 #: (``chip_profile.py --block-sizes``, PERF.md).
 _SCANS_THREADS = 128
+
+#: CTAs of the cluster that takes one row past a block's shared memory
+#: (``csrc/cluster_common.cuh`` ``kClusterSize``).
+CLUSTER_SIZE = THRESHOLD_CLUSTER
+#: What a launch returns when not one cluster fits on the card.
+_NOT_PLACED = -2
+#: Longest rows each kernel keeps in one block's shared memory (its
+#: ``kSharedMaxH``: 227 KB, less B1's 1 KB of static scratch, in floats);
+#: longer rows launch its cluster kernel.
+SELECT_SCAN_SHARED_MAX_H = THRESHOLD_SHARED_MAX_H
+SCANS_SHARED_MAX_H = 227 * 1024 // 4
 
 _KERNEL = "prominence_select_scan"
 _SCANS_KERNEL = "prominence_scans"
@@ -60,14 +76,14 @@ def _kernel_fn():
         fn.restype = ctypes.c_int
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            *([ctypes.c_void_p] * 8), ctypes.c_int, ctypes.c_void_p,
+            *([ctypes.c_void_p] * 7), ctypes.c_int, ctypes.c_void_p,
         ]
-        ws = lib.apda_select_scan_workspace_floats
-        ws.restype = ctypes.c_longlong
-        ws.argtypes = [ctypes.c_int, ctypes.c_int]
+        smem = lib.apda_select_scan_cluster_smem
+        smem.restype = ctypes.c_longlong
+        smem.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.apda_cuda_error_string.restype = ctypes.c_char_p
         lib.apda_cuda_error_string.argtypes = [ctypes.c_int]
-        _fn = (fn, ws, lib.apda_cuda_error_string)
+        _fn = (fn, smem, lib.apda_cuda_error_string)
     return _fn
 
 
@@ -79,19 +95,31 @@ def _scans_kernel_fn():
         fn.restype = ctypes.c_int
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            *([ctypes.c_void_p] * 6), ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            *([ctypes.c_void_p] * 5), ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
-        ws = lib.apda_scans_workspace_floats
-        ws.restype = ctypes.c_longlong
-        ws.argtypes = [ctypes.c_int, ctypes.c_int]
+        smem = lib.apda_scans_cluster_smem
+        smem.restype = ctypes.c_longlong
+        smem.argtypes = [ctypes.c_int]
         lib.apda_cuda_error_string.restype = ctypes.c_char_p
         lib.apda_cuda_error_string.argtypes = [ctypes.c_int]
-        _scans_fn = (fn, ws, lib.apda_cuda_error_string)
+        _scans_fn = (fn, smem, lib.apda_cuda_error_string)
     return _scans_fn
 
 
-def _workspace(floats: int, device: torch.device) -> torch.Tensor | None:
-    return torch.empty(floats, dtype=torch.float32, device=device) if floats else None
+def _launch_error(kernel: str, rc: int, err_str, smem_bytes, device, b: int, h: int,
+                  m: int) -> RuntimeError:
+    """The error of a launch that returned ``rc``: the ``cudaError`` text, or
+    for a cluster that cannot be placed, the cluster and its shared memory."""
+    shape = f"B={b}, H={h}, M={m}"
+    if rc == _NOT_PLACED:
+        return RuntimeError(
+            f"{kernel} launch failed ({shape}): a cluster of {CLUSTER_SIZE} CTAs with "
+            f"{smem_bytes()} bytes of shared memory each cannot be placed on "
+            f"{torch.cuda.get_device_name(device)} (cudaOccupancyMaxActiveClusters = 0)"
+        )
+    return RuntimeError(
+        f"{kernel} launch failed ({shape}): {err_str(rc).decode()} (cudaError {rc})"
+    )
 
 
 def select_scan_work(b: int, h: int, m: int) -> tuple[int, int]:
@@ -128,7 +156,7 @@ def prominence_select_scan(mags: torch.Tensor, max_candidates: int):
     reference's walk order (4-dp-rounded magnitude descending, ties by
     ascending bin); slots past a row's candidates hold bin 0.
     """
-    global launches
+    global launches, cluster_launches
     if not isinstance(mags, torch.Tensor):
         raise TypeError(f"mags must be a torch.Tensor, got {type(mags).__name__}")
     if mags.dtype != torch.float32:
@@ -154,21 +182,17 @@ def prominence_select_scan(mags: torch.Tensor, max_candidates: int):
     n_cand = mags.new_empty((b,), dtype=torch.int32)
     if b == 0:
         return cid, is_cand, cmag, proms, bins, std, n_cand
-    fn, ws_floats, err_str = _kernel_fn()
-    ws = _workspace(ws_floats(b, h), mags.device)
+    fn, smem, err_str = _kernel_fn()
     rc = fn(
         mags.data_ptr(), b, h, m,
         cid.data_ptr(), is_cand.data_ptr(), cmag.data_ptr(), proms.data_ptr(),
         bins.data_ptr(), std.data_ptr(), n_cand.data_ptr(),
-        ws.data_ptr() if ws is not None else None,
         mags.device.index, torch.cuda.current_stream(mags.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(
-            f"{_KERNEL} launch failed (B={b}, H={h}, M={m}): "
-            f"{err_str(rc).decode()} (cudaError {rc})"
-        )
+        raise _launch_error(_KERNEL, rc, err_str, lambda: smem(h, m), mags.device, b, h, m)
     launches += 1
+    cluster_launches += h > SELECT_SCAN_SHARED_MAX_H
     kernels.note_launch(_KERNEL, *select_scan_work(b, h, m))
     return cid, is_cand, cmag, proms, bins, std, n_cand
 
@@ -208,7 +232,7 @@ def prominence_scans(mags: torch.Tensor, cid: torch.Tensor, cmag: torch.Tensor,
     ``[B, M]`` float32 prominences and int32 widths; slots past
     ``n_valid`` hold 0 / 1.
     """
-    global scan_launches
+    global scan_launches, cluster_scan_launches
     for name, t in (("mags", mags), ("cid", cid), ("cmag", cmag), ("n_valid", n_valid)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
@@ -237,20 +261,16 @@ def prominence_scans(mags: torch.Tensor, cid: torch.Tensor, cmag: torch.Tensor,
     bins = torch.empty((b, m), dtype=torch.int32, device=mags.device)
     if b == 0 or m == 0:
         return prom, bins
-    fn, ws_floats, err_str = _scans_kernel_fn()
-    ws = _workspace(ws_floats(b, h), mags.device)
+    fn, smem, err_str = _scans_kernel_fn()
     rc = fn(
         mags.data_ptr(), b, h, m, cid.data_ptr(), cmag.data_ptr(), n_valid.data_ptr(),
-        prom.data_ptr(), bins.data_ptr(), ws.data_ptr() if ws is not None else None,
-        _SCANS_THREADS,
+        prom.data_ptr(), bins.data_ptr(), _SCANS_THREADS,
         mags.device.index, torch.cuda.current_stream(mags.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(
-            f"{_SCANS_KERNEL} launch failed (B={b}, H={h}, M={m}): "
-            f"{err_str(rc).decode()} (cudaError {rc})"
-        )
+        raise _launch_error(_SCANS_KERNEL, rc, err_str, lambda: smem(h), mags.device, b, h, m)
     scan_launches += 1
+    cluster_scan_launches += h > SCANS_SHARED_MAX_H
     kernels.note_launch(_SCANS_KERNEL, *scans_work(b, h, m))
     return prom, bins
 

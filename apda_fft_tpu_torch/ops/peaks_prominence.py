@@ -26,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from apda_fft_tpu_torch.ops.stats import div_exact, noise_threshold
+from apda_fft_tpu_torch.ops.stats import div_exact, ordered_noise_threshold
 
 MIN_DAMPING = 0.001
 MAX_DAMPING = 0.07
@@ -98,11 +98,13 @@ def prominence_select(mags: torch.Tensor, max_candidates: int, selection: str = 
     the tie order unspecified).  Slots past a row's candidates hold bin 0
     with its magnitude and ``is_cand`` False - the fill an argmax over an
     exhausted score gives, which the fused kernel reproduces.  Every name
-    of :data:`SELECTIONS` gives this order.
+    of :data:`SELECTIONS` gives this order.  The threshold's sums follow
+    the kernel's one order (:func:`~apda_fft_tpu_torch.ops.stats.ordered_mean_std`),
+    so the kernel's std and candidates are this function's bits.
     """
     check_selection(selection)
     h = mags.shape[-1]
-    thr, std = noise_threshold(mags)
+    thr, std = ordered_noise_threshold(mags)
     cand_mask = _candidate_mask(mags, thr)
     eff = min(max_candidates, h)
     score = torch.where(cand_mask, _round_decimals(mags, 4), -torch.inf)

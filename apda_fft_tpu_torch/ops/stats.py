@@ -113,3 +113,100 @@ def noise_threshold(mags: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``mean + 2*stdev`` dynamic threshold over the last axis; returns (threshold, std)."""
     mean, std = mean_std_ddof1(mags)
     return mean + 2.0 * std, std
+
+
+#: The select+scan kernel's summation order (``csrc/detector_common.cuh``):
+#: lanes a block (or cluster CTA), rows kept in one block's shared memory,
+#: and CTAs of the cluster that takes a longer row.
+THRESHOLD_LANES = 128
+THRESHOLD_SHARED_MAX_H = 57856
+THRESHOLD_CLUSTER = 8
+
+
+def threshold_segment(h: int) -> int:
+    """Bins of each cluster CTA's segment of a row of ``h`` bins past
+    :data:`THRESHOLD_SHARED_MAX_H`: ``h`` split into
+    :data:`THRESHOLD_CLUSTER` contiguous segments of a whole number of lane
+    strides (the last one shorter), a function of ``h`` alone."""
+    stride = THRESHOLD_CLUSTER * THRESHOLD_LANES
+    return (h + stride - 1) // stride * THRESHOLD_LANES
+
+
+def _lane_sums(terms: torch.Tensor, compensated: bool) -> torch.Tensor:
+    """``terms [..., K, 128]`` -> per-lane sums ``[..., 128]``, each lane
+    adding its K terms in increasing index (Kahan-compensated when asked),
+    one rounded elementwise operation at a time."""
+    s = torch.zeros_like(terms[..., 0, :])
+    c = torch.zeros_like(s)
+    for k in range(terms.shape[-2]):
+        if compensated:
+            y = terms[..., k, :] - c
+            t = s + y
+            c = (t - s) - y
+            s = t
+        else:
+            s = s + terms[..., k, :]
+    return s
+
+
+def _lane_tree(s: torch.Tensor) -> torch.Tensor:
+    """The block reduction of 128 lane sums ``[..., 128]``: an xor butterfly
+    within each warp of 32 lanes, then the four warp sums in order."""
+    lanes = torch.arange(THRESHOLD_LANES, device=s.device)
+    for o in (16, 8, 4, 2, 1):
+        s = s + s[..., lanes ^ o]
+    total = s[..., 0]
+    for w in range(1, THRESHOLD_LANES // 32):
+        total = total + s[..., 32 * w]
+    return total
+
+
+def _ordered_sum(terms: torch.Tensor, h: int) -> torch.Tensor:
+    """Sum over the last axis (``h`` terms, zero-padded to whole lane
+    strides) in the kernel's order, see :func:`ordered_mean_std`."""
+    lead = terms.shape[:-1]
+    if h <= THRESHOLD_SHARED_MAX_H:
+        lanes = terms.reshape(*lead, terms.shape[-1] // THRESHOLD_LANES, THRESHOLD_LANES)
+        return _lane_tree(_lane_sums(lanes, compensated=False))
+    seg = threshold_segment(h)
+    lanes = terms.reshape(*lead, THRESHOLD_CLUSTER, seg // THRESHOLD_LANES, THRESHOLD_LANES)
+    part = _lane_tree(_lane_sums(lanes, compensated=True))
+    total = part[..., 0]
+    for r in range(1, THRESHOLD_CLUSTER):
+        total = total + part[..., r]
+    return total
+
+
+def ordered_mean_std(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean and sample standard deviation (ddof=1) over the last axis, each
+    sum taken in the one order of the select+scan kernel, so that its
+    results are the kernel's bits:
+
+    * ``h <= THRESHOLD_SHARED_MAX_H``: 128 lanes, lane ``l`` adding
+      ``x[l], x[l+128], ...`` with plain rounded adds, then the lane tree
+      (:func:`_lane_tree`);
+    * longer rows: :data:`THRESHOLD_CLUSTER` segments of
+      :func:`threshold_segment` bins, each summed like a short row but with
+      Kahan-compensated lanes over whole lane strides (the last segment's
+      missing bins are zero terms), then the segments' partials in order.
+
+    The squared deviations about the rounded mean are summed the same way.
+    One rounded operation at a time on any device: ``H/128`` elementwise
+    adds of ``[..., 128]`` a pass.
+    """
+    h = x.shape[-1]
+    seg = threshold_segment(h) if h > THRESHOLD_SHARED_MAX_H else THRESHOLD_LANES
+    span = THRESHOLD_CLUSTER * seg if h > THRESHOLD_SHARED_MAX_H else -(-h // seg) * seg
+    padded = torch.nn.functional.pad(x, (0, span - h))
+    mean = div_exact(_ordered_sum(padded, h), float(h))
+    d = padded - mean[..., None]
+    sq = torch.where(torch.arange(span, device=x.device) < h, d * d, 0.0)
+    var = div_exact(_ordered_sum(sq, h), float(h - 1))
+    return mean, torch.sqrt(var)
+
+
+def ordered_noise_threshold(mags: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`noise_threshold` with the sums of :func:`ordered_mean_std`,
+    the select+scan kernel's threshold bit for bit; returns (threshold, std)."""
+    mean, std = ordered_mean_std(mags)
+    return mean + 2.0 * std, std

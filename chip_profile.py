@@ -52,11 +52,12 @@
    counterpart of the TPU's three bf16 passes); normwise error of the
    magnitudes against float64 ``numpy.fft`` and CUDA-event medians of 20,
    in the order highest, single, split, split, single, highest.
-8. threshold order: the select+scan kernel against its plain twin on the
-   clean and noisy corpora's magnitudes at both precisions, each scaled
-   by 1, 1.001, ..., 1.004 (20 batches of 2048 rows, M=32): the rows whose
-   std (which sets the noise threshold) differs in any bit, and the rows
-   whose candidate count differs (ROADMAP.md §C).
+8. threshold order (``chip_smoke.py`` phase 26): the select+scan kernel
+   against its plain twin on the clean and noisy corpora's magnitudes at
+   both precisions, each scaled by 1, 1.001, ..., 1.004 times a factor
+   drawn at run time (20 batches of 2048 rows, M=32): the rows whose std
+   (which sets the noise threshold) differs in any bit, and the rows whose
+   candidate count differs; the check fails unless both are 0.
 
 Every line carries the card's name and power limit.  Exit code 0 unless a
 check fails; the probe's mismatches are reported, not raised.
@@ -455,21 +456,8 @@ def fast_modes(corpora: dict[str, np.ndarray], card: str) -> None:
 
 
 def threshold_order(corpora: dict[str, np.ndarray], card: str) -> None:
-    rows = std_off = ncand_off = 0
-    for name, x in corpora.items():
-        xs = torch.from_numpy(x).cuda()
-        xc = xs - xs.mean(dim=-1, keepdim=True)
-        for prec in ("highest", "fast"):
-            for rep in range(5):
-                mags = fft_ops.halfspec_magnitudes(xc * (1 + rep * 1e-3), backend="matmul",
-                                                   precision=prec).contiguous()
-                got = detector_cuda.prominence_select_scan(mags, 32)
-                want = detector_cuda._prominence_select_scan_plain(mags, 32)
-                rows += mags.shape[0]
-                std_off += int((got[5] != want[5]).sum())
-                ncand_off += int((got[6] != want[6]).sum())
-    log(f"[threshold] select+scan vs plain twin on {rows} rows: std differs in {std_off}, "
-        f"n_cand in {ncand_off}; {card}")
+    """Item 8: ``chip_smoke.py`` phase 26, which asserts 0 rows apart."""
+    chip_smoke.phase_threshold_order(corpora, card)
 
 
 def main() -> int:

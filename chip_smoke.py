@@ -12,11 +12,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
 3. kernel vs plain on the card: the select+scan kernel against its plain
    torch version on four spectrum corpora at H in {32, 128, 2048, 32768}
    and M in {2, 12, 32, 128}, at H=55000 and the longest H it keeps in
-   shared memory (no room for its chunk summaries: walks bin by bin), on
-   rows that stay in device memory (H in {57857, 65536, 131072}, and
-   H=2**20, whose summaries go to the workspace), and on H=32768 and
-   H=131072 rows with more candidates than its candidate list holds (the
-   select-from-the-row route) - integers equal, floats within rtol 1e-6;
+   shared memory (no room for its chunk summaries: walks bin by bin) -
+   integers equal, floats within rtol 1e-6; then its cluster kernel on
+   rows past shared memory (H in {57857, 65536, 131072} at B in {1, 16,
+   64}, and H=2**20, whose segments stay in device memory) and on H=32768,
+   131072 and 2**20 rows with more candidates than a candidate list holds
+   (the select-from-the-row route) - every output bit-equal;
 4. spectrum accuracy: the four-step magnitudes against float64 numpy.fft,
    <= 1e-6 normwise at N in {1024, 4096, 65536};
 5. main path: ``analyze_epoch`` (flexible, refine, lowlat="never") on the
@@ -29,7 +30,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    epoch (B=256) are checked against the CPU run; one flexible and one
    adaptive epoch at N=131072 (B=16: damped modes, and undamped tones that
    adaptive mode hands to the resolution detector; rows past the kernel's
-   shared memory) against the CPU run and the oracle (4 windows);
+   shared memory: the cluster kernel, each call bit-equal to the twin)
+   against the CPU run and the oracle (4 windows);
 6. times (CUDA events, warm-up, median of 20, plain-kernel-kernel-plain
    order): kernel vs plain at B=2048, H=2048, M in {2, 12, 32, 128}, and
    whole epochs in windows/s beside the front end and the detect stage
@@ -86,9 +88,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    prominences and widths on its valid slots; then hand-made slots on the
    same rows: peaks ``cmag = x[cid]`` times 0.5 and 2, ``cid`` in {0, 1,
    H-2, H-1, -1, H, H+7} and ``n_valid`` of -3 and M+5, against the twin;
-   ``prominence_peaks_batch`` on
-   the noisy corpus's spectra (B=2048) equals ``prominence_peaks_fused`` at
-   the same budget, and its scans-kernel launch count must be > 0;
+   the cluster kernel (H in {58113, 65536, 131072} at B in {1, 16, 64}, and
+   H=2**20) bit-equal to the twin; ``prominence_peaks_batch`` on
+   the noisy corpus's spectra (B=2048) and on phase 5's N=131072 spectra
+   (B=16, the cluster kernel) equals ``prominence_peaks_fused`` at the
+   same budget, and both scans kernels' launch counts must be > 0;
 13. times (CUDA events, median of 20, plain-kernel-kernel-plain order): the
    front-end kernel, its plain twin and ``torch.fft.rfft``
    (``backend="xla"``) at B=2048, N=4096, with the kernel's profiler device
@@ -223,14 +227,14 @@ Phase 25 drives the last slice of the port:
 25. times first: the four-step front end at ``precision="fast"`` and
    ``"highest"`` (B=2048 x N=4096, CUDA events, median of 20, in the order
    highest, fast, fast, highest); ``utils.benchtime.per_iteration_stats``
-   on the clean epoch beside its CUDA-event time; B1's and B5's long-row
-   kernels (H > 57856) at phase 5's N=131072 rows (B=16, H=65536, M=32,
-   profiler device time) with their bounds; a ``"highest"`` and a
-   ``"fast"`` epoch in two threads at once, ten times (every ``"highest"``
-   result bit-equal to a lone run; untapped, see the code).  Then, with the
-   launch counts
+   on the clean epoch beside its CUDA-event time; B1's and B5's cluster
+   kernels at phase 5's N=131072 rows (H=65536, M=32; B=16, 1 and 64:
+   profiler device time, call time, the plain twin's, the bound) in a
+   fresh process.  Then, with the launch counts
    zeroed before and read after and every B1/B2/B3/B4 call tapped and held
-   against its plain twin: the clean and noisy epochs (flexible, refine,
+   against its plain twin: a ``"highest"`` and a ``"fast"`` epoch in two
+   threads at once, ten times (every ``"highest"`` result bit-equal to a
+   lone run); the clean and noisy epochs (flexible, refine,
    lowlat="never") at ``precision="fast"`` and ``"highest"`` (the fast
    magnitudes within ``ops.fft.FAST_NORMWISE_BOUND`` of float64
    numpy.fft, windows whose decisions differ counted); the lone
@@ -244,7 +248,16 @@ Phase 25 drives the last slice of the port:
    ``utils.compilecache`` directory, a second one loads them all from it
    with the builders disabled;
 
-then one JSON line describing the five kernels, each with its bound (the
+Phase 26 holds B1's threshold order:
+
+26. B1 against its plain twin on 40960 fresh rows (the clean and noisy
+   corpora's magnitudes at both precisions, each scaled by five factors
+   times one drawn at run time and printed): ``std`` and ``n_cand`` equal
+   in every row (``ops/stats.py`` ``ordered_mean_std``, the order of
+   ``csrc/detector_common.cuh``);
+
+then one JSON line describing the five kernels and B1's and B5's cluster
+kernels for rows past shared memory, each with its bound (the
 larger of its bytes over 3.35 TB/s and its float32 operations over
 67 TFLOP/s, computed from the shapes timed) and the time of one PyTorch
 call computing the same function where there is one, the card line, then
@@ -296,7 +309,7 @@ from apda_fft_tpu_torch.ops.fft_cuda import (
     halfspec_magnitudes_fused,
 )
 from apda_fft_tpu_torch.ops.peaks_prominence import prominence_select
-from apda_fft_tpu_torch.ops.stats import noise_threshold
+from apda_fft_tpu_torch.ops.stats import ordered_noise_threshold
 from apda_fft_tpu_torch.ops import fft as fft_ops
 from apda_fft_tpu_torch.utils import benchtime, kernels, profiling
 from apda_fft_tpu_torch.utils.synthetic import modal_records
@@ -322,9 +335,6 @@ WALL_RUNS = 50
 #: FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
-#: Longest row the select+scan kernel keeps in shared memory (its
-#: kSharedMaxH): 227 KB less 1 KB of static scratch, in floats.
-B1_SHARED_MAX_H = (227 * 1024 - 1024) // 4
 #: Window length of the long-row epochs of phase 5.
 N_LONG = 131072
 
@@ -474,6 +484,18 @@ def _kernel_equals_plain(mags: torch.Tensor, m: int, got, case: str) -> float:
     return err
 
 
+def _kernel_bit_equal(mags: torch.Tensor, m: int, got, case: str) -> None:
+    """The kernel's seven outputs ``got`` for ``mags`` at budget ``m``
+    against the plain version's: every output the same bits."""
+    want = _prominence_select_scan_plain(mags, min(m, mags.shape[-1]))
+    names = ("cid", "is_cand", "cmag", "prom", "bins", "std", "n_cand")
+    for name, g, w in zip(names, got, want):
+        if not torch.equal(g, w):
+            rows = (g != w).reshape(g.shape[0], -1).any(dim=1).nonzero().flatten().cpu().numpy()
+            log(_threshold_report(mags, got, want, rows, case))
+            raise AssertionError(f"{case} {name}: {len(rows)} rows differ from the plain twin")
+
+
 def _threshold_report(mags: torch.Tensor, got, want, rows, case: str) -> str:
     """For rows where the kernel's integers differ from the plain twin's:
     each side's std and threshold, the float64 threshold, and the strict
@@ -483,7 +505,7 @@ def _threshold_report(mags: torch.Tensor, got, want, rows, case: str) -> str:
         x = mags[r].double().cpu().numpy()
         thr64 = x.mean() + 2.0 * x.std(ddof=1)
         sd_k, sd_p = float(got[5][r]), float(want[5][r])
-        thr_p = float(noise_threshold(mags[r:r + 1])[0][0])
+        thr_p = float(ordered_noise_threshold(mags[r:r + 1])[0][0])
         local = (x[1:-1] > x[:-2]) & (x[1:-1] > x[2:])
         near = np.flatnonzero(local & (np.abs(x[1:-1] - thr64) <= 1e-5 * abs(thr64))) + 1
         lines.append(
@@ -530,33 +552,47 @@ def phase_kernel_vs_plain() -> float:
     # Long rows.  In shared memory, no room for the chunk summaries, so the
     # walks go bin by bin: at H=55000 on the candidate list, at the longest
     # row kept there (no room for a list either) on the select-from-the-row
-    # route.  Past it the row stays in device memory, its summaries and list
-    # in shared memory; at H=2**20 the summaries go to the workspace.
-    for h, budgets, where in ((55000, (2, 12, 32, 128), "shared, no chunk summaries"),
-                              (B1_SHARED_MAX_H, (2, 12, 32, 128), "shared, no list"),
-                              (B1_SHARED_MAX_H + 1, (2, 12, 32, 128), "device memory"),
-                              (65536, (2, 12, 32, 128), "device memory"),
-                              (131072, (2, 12, 32, 128), "device memory"),
-                              (1 << 20, (2, 12), "device memory, summaries in the workspace")):
+    # route.
+    b1_max = detector_cuda.SELECT_SCAN_SHARED_MAX_H
+    for h, where in ((55000, "shared, no chunk summaries"), (b1_max, "shared, no list")):
         mags = torch.from_numpy(spectra(2, h, seed=5, kind="modal")).cuda()
         diffs = [_kernel_equals_plain(mags, m, prominence_select_scan(mags, m),
-                                      f"modal H={h} M={m}") for m in budgets]
+                                      f"modal H={h} M={m}") for m in (2, 12, 32, 128)]
         worst = max(worst, *diffs)
-        cases += len(budgets)
+        cases += 4
         log(f"[3 kernel==plain] modal H={h} B=2 ({where}): max|float diff| at "
-            f"M={'/'.join(map(str, budgets))} = {', '.join(f'{d:.3g}' for d in diffs)}")
-    for h in (32768, 131072):
-        mags = torch.from_numpy(overflow_spectra(4, h)).cuda()
+            f"M=2/12/32/128 = {', '.join(f'{d:.3g}' for d in diffs)}")
+    # Past it, the cluster kernel (a cluster of CTAs a row, each with its
+    # segment in shared memory; at H=2**20 the segments stay in device
+    # memory): bit-equal to the twin at B=1, 16 and 64.
+    before_cluster = detector_cuda.cluster_launches
+    for h, batches, budgets in ((b1_max + 1, (1, 16, 64), (2, 12, 32, 128)),
+                                (65536, (1, 16, 64), (2, 12, 32, 128)),
+                                (131072, (1, 16, 64), (2, 12, 32, 128)),
+                                (1 << 20, (2,), (2, 12))):
+        for b in batches:
+            mags = torch.from_numpy(spectra(b, h, seed=5 + b, kind="modal")).cuda()
+            for m in budgets:
+                _kernel_bit_equal(mags, m, prominence_select_scan(mags, m),
+                                  f"modal H={h} B={b} M={m}")
+            cases += len(budgets)
+        log(f"[3 kernel==plain] modal H={h} B={'/'.join(map(str, batches))} (cluster kernel): "
+            f"every output bit-equal at M={'/'.join(map(str, budgets))}")
+    for h in (32768, 131072, 1 << 20):
+        mags = torch.from_numpy(overflow_spectra(4 if h < (1 << 20) else 2, h)).cuda()
         diffs = []
         for m in (2, 12, 32, 128):
             got = prominence_select_scan(mags, m)
             assert int(got[6].min()) > 4096, got[6].tolist()  # past the candidate list
+            if h > b1_max:
+                _kernel_bit_equal(mags, m, got, f"overflow H={h} M={m}")
             diffs.append(_kernel_equals_plain(mags, m, got, f"overflow H={h} M={m}"))
         worst = max(worst, *diffs)
         cases += 4
-        log(f"[3 kernel==plain] overflow H={h} B=4 (n_cand {got[6].tolist()}): max|float "
-            f"diff| at M=2/12/32/128 = {', '.join(f'{d:.3g}' for d in diffs)}")
+        log(f"[3 kernel==plain] overflow H={h} B={mags.shape[0]} (n_cand {got[6].tolist()}): "
+            f"max|float diff| at M=2/12/32/128 = {', '.join(f'{d:.3g}' for d in diffs)}")
     assert detector_cuda.launches > before, "the kernel was never launched"
+    assert detector_cuda.cluster_launches > before_cluster, "the cluster kernel never launched"
     log(f"[3 kernel==plain] all {cases} cases equal; launches {detector_cuda.launches - before}; "
         f"max abs float diff {worst:.3g}")
     return worst
@@ -650,6 +686,8 @@ def phase_main_path_kernel_calls(calls) -> float:
     worst = 0.0
     for i, (mags, m, got) in enumerate(calls):
         shape = "x".join(map(str, mags.shape))
+        if mags.shape[-1] > detector_cuda.SELECT_SCAN_SHARED_MAX_H:  # the cluster kernel
+            _kernel_bit_equal(mags, m, got, f"main-path call {i} [{shape}] M={m}")
         diffs = [_kernel_equals_plain(mags, m, got, f"main-path call {i} [{shape}] M={m}")]
         for other in budgets:
             if other != m:
@@ -687,9 +725,10 @@ def long_batch() -> np.ndarray:
     return np.stack(rows).astype(np.float32)
 
 
-def phase_main_path(corpora: dict[str, np.ndarray]) -> tuple[int, float]:
-    """Drive analyze_epoch on the card; returns the kernel launches it made
-    and the max abs float error of its kernel calls against plain."""
+def phase_main_path(corpora: dict[str, np.ndarray]) -> tuple[tuple[int, int], float]:
+    """Drive analyze_epoch on the card; returns the launches it made of B1's
+    shared-memory and cluster kernels and the max abs float error of its
+    kernel calls against plain."""
     pipeline.reset_dynamic_state()
     results, budgets = {}, {}
     # Tap the wrapper the pipeline calls, so that each kernel call of the
@@ -703,7 +742,7 @@ def phase_main_path(corpora: dict[str, np.ndarray]) -> tuple[int, float]:
         return out
 
     detector_cuda.prominence_select_scan = tapped
-    detector_cuda.launches = 0
+    detector_cuda.launches = detector_cuda.cluster_launches = 0
     for name, x in corpora.items():
         xs = torch.from_numpy(x).cuda()
         for epoch in range(2):
@@ -734,6 +773,9 @@ def phase_main_path(corpora: dict[str, np.ndarray]) -> tuple[int, float]:
         f"(calls at {[(tuple(c[0].shape), c[1]) for c in calls]})")
     assert launches > 0, "the main path never launched the detector kernel"
     assert long_launches > 0, f"the N={N_LONG} epochs never launched the detector kernel"
+    # Every N=131072 launch, and only those, went to the cluster kernel.
+    assert detector_cuda.cluster_launches == long_launches, (detector_cuda.cluster_launches,
+                                                            long_launches)
     assert launches == len(calls), (launches, len(calls))
     assert budgets["noisy"]["tier"] is not None, "the noisy epoch did not run two-tier"
     max_err = phase_main_path_kernel_calls(calls)
@@ -786,8 +828,8 @@ def phase_main_path(corpora: dict[str, np.ndarray]) -> tuple[int, float]:
         assert bool((gpu.count[12:] > 0).all()) == (mode == "adaptive"), gpu.count.tolist()
         log(f"[5 main path] N={N_LONG} {mode}: {long_x.shape[0]} windows equal to the CPU run "
             f"at budget {stats['candidate_budget']}, windows 0, 1, 12, 13 to the float64 "
-            f"oracle; kernel launches {long_launches} for both epochs")
-    return launches, max_err
+            f"oracle; cluster-kernel launches {long_launches} for both epochs")
+    return (launches - long_launches, long_launches), max_err
 
 
 def phase_times(corpora: dict[str, np.ndarray], card: str) -> tuple[float, float]:
@@ -1355,11 +1397,13 @@ def phase_pallas_path(corpora: dict[str, np.ndarray]) -> tuple[int, float]:
 SCANS_HS = (32, 2048, 32768, 65536)
 
 
-def phase_scans_vs_plain(corpora: dict[str, np.ndarray]) -> tuple[int, float]:
+def phase_scans_vs_plain(corpora: dict[str, np.ndarray]) -> tuple[tuple[int, int], float]:
     """The scans kernel against its plain twin and against the select+scan
-    kernel on that kernel's own picks, then ``prominence_peaks_batch`` on
-    the noisy spectra; returns the scans kernel's launches in that last run
-    and the max abs float difference against the twin."""
+    kernel on that kernel's own picks, its cluster kernel bit-equal to the
+    twin, then ``prominence_peaks_batch`` on the noisy spectra and on phase
+    5's N=131072 spectra; returns the launches of the shared-memory and the
+    cluster kernel in those last runs and the max abs float difference
+    against the twin."""
     worst = 0.0
     cases = 0
     for kind in ("modal", "noise", "flat", "ties"):
@@ -1388,23 +1432,50 @@ def phase_scans_vs_plain(corpora: dict[str, np.ndarray]) -> tuple[int, float]:
                 f"the select+scan kernel on its picks; max|float diff| at M=2/12/32/128 = "
                 f"{', '.join(f'{d:.3g}' for d in diffs)}")
     log(f"[12 scans==plain] all {cases} cases equal")
+    # Rows past the shared-memory kernel (H > 58112): the cluster kernel,
+    # bit-equal to the twin.
+    for h, batches, budgets in ((detector_cuda.SCANS_SHARED_MAX_H + 1, (1, 16, 64),
+                                 (2, 12, 32, 128)),
+                                (65536, (1, 16, 64), (2, 12, 32, 128)),
+                                (131072, (1, 16, 64), (2, 12, 32, 128)),
+                                (1 << 20, (2,), (2, 12))):
+        for b in batches:
+            mags = torch.from_numpy(spectra(b, h, seed=7 + b, kind="modal")).cuda()
+            for m in budgets:
+                cid, is_cand, cmag, _, _, _ = prominence_select(mags, m)
+                n_valid = is_cand.sum(dim=-1).to(torch.int32)
+                got = prominence_scans(mags, cid, cmag, n_valid)
+                want = _prominence_scans_plain(mags, cid, cmag, n_valid)
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), f"cluster H={h} B={b} M={m}"
+        log(f"[12 scans==plain] modal H={h} B={'/'.join(map(str, batches))} (cluster kernel): "
+            f"prominences and widths bit-equal at M={'/'.join(map(str, budgets))}")
     hand = phase_scans_hand_made()
     worst = max(worst, hand)
 
-    mags = centered_mags(torch.from_numpy(corpora["noisy"]).cuda()).contiguous()
     budget = 32
-    detector_cuda.scan_launches = 0
-    got = prominence_peaks_batch(mags, FS, N_FFT, max_candidates=budget)
-    torch.cuda.synchronize()
-    launches = detector_cuda.scan_launches
-    want = prominence_peaks_fused(mags, FS, N_FFT, max_candidates=budget)
-    for f in got._fields:
-        assert torch.equal(getattr(got, f), getattr(want, f)), f"prominence_peaks_batch {f}"
-    assert launches > 0, "prominence_peaks_batch never launched the scans kernel"
-    log(f"[12 scans path] prominence_peaks_batch on the noisy spectra [{BATCH}, {N_FFT // 2}] "
-        f"at M={budget}: {launches} scans-kernel launch(es); every field equal to "
-        f"prominence_peaks_fused; count>0 in {int((got.count > 0).sum())} windows")
-    return launches, worst
+    detector_cuda.scan_launches = detector_cuda.cluster_scan_launches = 0
+    for name, mags, n_fft in (
+            ("the noisy spectra", centered_mags(torch.from_numpy(corpora["noisy"]).cuda()),
+             N_FFT),
+            (f"phase 5's N={N_LONG} spectra",
+             centered_mags(torch.from_numpy(long_batch()).cuda()), N_LONG)):
+        mags = mags.contiguous()
+        before = detector_cuda.scan_launches
+        got = prominence_peaks_batch(mags, FS, n_fft, max_candidates=budget)
+        torch.cuda.synchronize()
+        want = prominence_peaks_fused(mags, FS, n_fft, max_candidates=budget)
+        for f in got._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f"prominence_peaks_batch {f}"
+        assert detector_cuda.scan_launches > before, (
+            "prominence_peaks_batch never launched the scans kernel")
+        log(f"[12 scans path] prominence_peaks_batch on {name} {list(mags.shape)} at "
+            f"M={budget}: {detector_cuda.scan_launches - before} scans-kernel launch(es); every "
+            f"field equal to prominence_peaks_fused; count>0 in {int((got.count > 0).sum())} "
+            f"windows")
+    cluster = detector_cuda.cluster_scan_launches
+    assert cluster > 0, "the N=131072 spectra never launched the scans cluster kernel"
+    return (detector_cuda.scan_launches - cluster, cluster), worst
 
 
 def _scans_equal_plain(mags, cid, cmag, n_valid, case: str) -> float:
@@ -1533,19 +1604,23 @@ DECISIONS = ("count", "idx", "n_candidates", "n_required")
 
 
 def _zero_counts() -> None:
-    detector_cuda.launches = 0
-    detector_cuda.scan_launches = 0
+    detector_cuda.launches = detector_cuda.cluster_launches = 0
+    detector_cuda.scan_launches = detector_cuda.cluster_scan_launches = 0
     fft_cuda.launches = 0
     for key in latency_cuda.launches:
         latency_cuda.launches[key] = 0
 
 
 def _counts() -> dict[str, int]:
-    return {"prominence_select_scan": detector_cuda.launches,
+    """Launches per kernel since ``_zero_counts``: B1's and B5's wrappers
+    count both their kernels, of which the cluster kernels' apart."""
+    return {"prominence_select_scan": detector_cuda.launches - detector_cuda.cluster_launches,
+            "prominence_select_scan_cluster": detector_cuda.cluster_launches,
             "lowlat_flexible": latency_cuda.launches["lowlat_flexible"],
             "lowlat_rigid": latency_cuda.launches["lowlat_rigid"],
             "halfspec_fused": fft_cuda.launches,
-            "prominence_scans": detector_cuda.scan_launches}
+            "prominence_scans": detector_cuda.scan_launches - detector_cuda.cluster_scan_launches,
+            "prominence_scans_cluster": detector_cuda.cluster_scan_launches}
 
 
 class _Taps:
@@ -3074,25 +3149,86 @@ def _example_on_card(name: str) -> str:
 
 
 def long_row_times(card: str) -> None:
-    """B1's and B5's long-row kernels (H > 57856) at phase 5's N=131072 rows
-    (B=16, H=65536, M=32): profiler device time, CUDA-event call time and
-    the bound."""
-    long_spec = centered_mags(torch.from_numpy(long_batch()).cuda()).contiguous()
-    b, h = long_spec.shape
-    cid, is_cand, cmag = prominence_select_scan(long_spec, 32)[:3]
-    n_valid = is_cand.sum(dim=1).to(torch.int32)
-    for name, kernel, fn, work in (
-        ("B1", "select_scan_long_kernel", lambda: prominence_select_scan(long_spec, 32),
-         detector_cuda.select_scan_work(b, h, 32)),
-        ("B5", "preselected_scans_long_kernel",
-         lambda: prominence_scans(long_spec, cid, cmag, n_valid),
-         detector_cuda.scans_work(b, h, 32)),
-    ):
-        dev_ms = _kernel_device_ms(fn, kernel)
-        b_ms, b_by = bound(*work)
-        log(f"[25 long rows] {name} {kernel} B={b} H={h} M=32: device {dev_ms:.4f} ms "
-            f"(profiler mean of 20), call {event_ms(fn):.4f} ms (CUDA events), bound "
-            f"{b_ms:.6f} ms ({b_by}); {card}")
+    """B1's and B5's cluster kernels (rows past a block's shared memory) on
+    phase 5's N=131072 rows (H=65536, M=32) at B=16 (the epoch), 1 (its
+    first row) and 64 (its rows four times): profiler device time (mean of
+    20), CUDA-event call time and the plain twin's call time (medians of
+    20 and 5), and the bound.  The last line is the B=16 numbers as JSON."""
+    base = centered_mags(torch.from_numpy(long_batch()).cuda()).contiguous()
+    out = {}
+    for b in (16, 1, 64):
+        spec = {16: base, 1: base[:1], 64: base.repeat(4, 1)}[b].contiguous()
+        h = spec.shape[1]
+        cid, is_cand, cmag = prominence_select_scan(spec, 32)[:3]
+        n_valid = is_cand.sum(dim=1).to(torch.int32)
+        for name, kernel, fn, plain, work in (
+            ("prominence_select_scan_cluster", "select_scan_cluster_kernel",
+             lambda: prominence_select_scan(spec, 32),
+             lambda: _prominence_select_scan_plain(spec, 32),
+             detector_cuda.select_scan_work(b, h, 32)),
+            ("prominence_scans_cluster", "preselected_scans_cluster_kernel",
+             lambda: prominence_scans(spec, cid, cmag, n_valid),
+             lambda: _prominence_scans_plain(spec, cid, cmag, n_valid),
+             detector_cuda.scans_work(b, h, 32)),
+        ):
+            dev_ms = _kernel_device_ms(fn, kernel)
+            call_ms = event_ms(fn)
+            plain_ms = event_ms(plain, runs=5, warmup=1)
+            b_ms, b_by = bound(*work)
+            log(f"[25 long rows] {kernel} B={b} H={h} M=32: device {dev_ms:.4f} ms "
+                f"(profiler mean of 20), call {call_ms:.4f} ms, plain twin {plain_ms:.4f} ms "
+                f"(CUDA-event medians of {TIMING_RUNS} and 5), bound {b_ms:.6f} ms ({b_by}); "
+                f"{card}")
+            if b == 16:
+                out[name] = {"ms": call_ms, "device_ms": dev_ms, "plain_ms": plain_ms}
+    print(json.dumps(out), flush=True)
+
+
+def phase_long_row_times(card: str) -> dict[str, dict[str, float]]:
+    """Runs :func:`long_row_times` in a fresh process (after the earlier
+    phases' profiler sessions, one in this process recorded 7 of 21 launches
+    of a long-row kernel, three sessions in a row); returns its B=16 times."""
+    proc = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
+                           "chip_smoke.long_row_times(sys.argv[1])", card], cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": ROOT}, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    log("\n".join(lines[:-1]))
+    return json.loads(lines[-1])
+
+
+#: Rows of phase 26: the clean and noisy corpora at both precisions, each
+#: scaled by five factors.
+THRESHOLD_ROWS = 2 * 2 * 5 * BATCH
+
+
+def phase_threshold_order(corpora: dict[str, np.ndarray], card: str) -> int:
+    """Phase 26: B1 against its plain twin on fresh rows - the clean and
+    noisy corpora's magnitudes at ``precision="highest"`` and ``"fast"``,
+    each scaled by 1, 1.001, ..., 1.004 times a factor drawn at run time
+    (printed) - with ``std`` and ``n_cand`` equal in every row (the one
+    threshold order, ``ops/stats.py`` ``ordered_mean_std``).  Returns the
+    rows checked."""
+    seed = int.from_bytes(os.urandom(4), "little")
+    jitter = 1.0 + np.random.default_rng(seed).uniform(-1e-3, 1e-3)
+    rows = std_off = ncand_off = 0
+    for name, x in corpora.items():
+        xs = torch.from_numpy(x).cuda()
+        xc = xs - xs.mean(dim=-1, keepdim=True)
+        for prec in ("highest", "fast"):
+            for rep in range(5):
+                mags = halfspec_magnitudes(xc * (jitter * (1 + rep * 1e-3)), backend="matmul",
+                                           precision=prec).contiguous()
+                got = prominence_select_scan(mags, 32)
+                want = _prominence_select_scan_plain(mags, 32)
+                rows += mags.shape[0]
+                std_off += int((got[5] != want[5]).sum())
+                ncand_off += int((got[6] != want[6]).sum())
+    log(f"[26 threshold] select+scan vs plain twin on {rows} fresh rows (seed {seed}, scale "
+        f"{jitter!r}): std differs in {std_off}, n_cand in {ncand_off}; {card}")
+    assert rows >= THRESHOLD_ROWS and std_off == 0 and ncand_off == 0, (rows, std_off, ncand_off)
+    return rows
 
 
 def phase_last_slice(corpora: dict[str, np.ndarray], card: str
@@ -3122,50 +3258,9 @@ def phase_last_slice(corpora: dict[str, np.ndarray], card: str
     log(f"[25 benchtime] clean epoch: per_iteration_stats {st} against CUDA events "
         f"{ev:.4f} ms (median of {TIMING_RUNS}); {card}")
     assert st["per_iter_s"] > 0 and st["iters"] > 0, st
-    # The long-row kernels' device times come from a fresh process: after
-    # the earlier phases' profiler sessions, one in this process recorded 7
-    # of 21 launches of B1's long-row kernel, three sessions in a row.
-    proc = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
-                           "chip_smoke.long_row_times(sys.argv[1])", card], cwd=ROOT,
-                          env={**os.environ, "PYTHONPATH": ROOT}, capture_output=True,
-                          text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    log(proc.stdout.strip())
-
-    # "highest" beside "fast" in two threads, outside the taps: the fast
-    # thread's magnitudes depend on how the threads overlap (a fast call
-    # runs in IEEE while a highest one is inside), and B1 sums its
-    # threshold in another order than its plain twin (ROADMAP.md §C), so a
-    # fresh row can flip a candidate that sits on the threshold.  The
-    # highest results are held bit-equal to a lone run, whose B1 call is
-    # tapped below.
     noisy = xs["noisy"]
     lone = pipeline.analyze_epoch(noisy, FS, max_candidates=32, **epoch_kw)
     got, errors = [], []
-
-    def worker(prec: str) -> None:
-        try:
-            for _ in range(10):
-                r = pipeline.analyze_epoch(noisy, FS, precision=prec, max_candidates=32,
-                                           **epoch_kw)
-                if prec == "highest":
-                    got.append(r)
-        except BaseException as exc:  # noqa: BLE001 - re-raised below
-            errors.append(exc)
-            raise
-
-    pair = [threading.Thread(target=worker, args=(p,)) for p in ("highest", "fast")]
-    for t in pair:
-        t.start()
-    for t in pair:
-        t.join(timeout=300)
-    assert not errors and not any(t.is_alive() for t in pair), errors
-    assert len(got) == 10
-    for r in got:
-        for field in lone._fields:
-            assert torch.equal(getattr(r, field), getattr(lone, field)), field
-    log("[25 threads] 10 highest epochs beside 10 fast ones in another thread: every "
-        "highest result bit-equal to a lone run")
 
     # The CPU runs of the examples overlap the card's work from here on.
     cpu_env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1"}
@@ -3176,6 +3271,36 @@ def phase_last_slice(corpora: dict[str, np.ndarray], card: str
     try:
         _zero_counts()
         with _Taps() as taps:
+            # "highest" beside "fast" in two threads, every B1 call tapped:
+            # the fast thread's magnitudes depend on how the threads overlap
+            # (a fast call runs in IEEE while a highest one is inside), so
+            # its rows are fresh each run; B1 and its twin sum the threshold
+            # in one order, so each call equals its twin.  The highest
+            # results are held bit-equal to a lone run.
+            def worker(prec: str) -> None:
+                try:
+                    for _ in range(10):
+                        r = pipeline.analyze_epoch(noisy, FS, precision=prec, max_candidates=32,
+                                                   **epoch_kw)
+                        if prec == "highest":
+                            got.append(r)
+                except BaseException as exc:  # noqa: BLE001 - re-raised below
+                    errors.append(exc)
+                    raise
+
+            pair = [threading.Thread(target=worker, args=(p,)) for p in ("highest", "fast")]
+            for t in pair:
+                t.start()
+            for t in pair:
+                t.join(timeout=300)
+            assert not errors and not any(t.is_alive() for t in pair), errors
+            assert len(got) == 10
+            for r in got:
+                for field in lone._fields:
+                    assert torch.equal(getattr(r, field), getattr(lone, field)), field
+            log("[25 threads] 10 highest epochs beside 10 fast ones in another thread: every "
+                "highest result bit-equal to a lone run")
+
             for name, x in xs.items():
                 res = {}
                 for prec in ("highest", "fast"):
@@ -3243,7 +3368,7 @@ def main() -> int:
     corpora_err = phase_kernel_vs_plain()
     phase_spectrum()
     corpora = {"clean": clean_batch(BATCH), "noisy": noisy_batch(BATCH)}
-    launches, main_err = phase_main_path(corpora)
+    (launches, long_launches), main_err = phase_main_path(corpora)
     k_ms, p_ms = phase_times(corpora, card)
     lowlat_err = phase_lowlat_vs_plain()
     lowlat_launches, route_err = phase_route(
@@ -3251,7 +3376,7 @@ def main() -> int:
     lowlat_times = phase_lowlat_times(card)
     halfspec_err = phase_halfspec_vs_plain()
     halfspec_launches, pallas_err = phase_pallas_path(corpora)
-    scan_launches, scan_err = phase_scans_vs_plain(corpora)
+    (scan_launches, long_scan_launches), scan_err = phase_scans_vs_plain(corpora)
     new_times = phase_new_times(corpora, card)
     oracle, signals = _load_oracle(), _load_module("apda_signals", "signals.py")
     paths = {"records": phase_records(oracle, signals, card),
@@ -3269,11 +3394,13 @@ def main() -> int:
     log(f"[22 elapsed] phases 1-22 in {time.perf_counter() - t0:.1f} s")
     paths["mesh"] = phase_mesh(corpora, arrays, signals, card)
     phase_cli(signals, card)
+    long_times = phase_long_row_times(card)
     paths["last slice"] = phase_last_slice(corpora, card)
+    phase_threshold_order(corpora, card)
     log(f"[25 launches] by path: { {name: launches for name, (launches, _) in paths.items()} }")
     path_launches = {key: sum(p[0][key] for p in paths.values()) for key in _counts()}
     path_err = _max_err(*(err for _, err in paths.values()))
-    log(f"[25 elapsed] phases 1-25 in {time.perf_counter() - t0:.1f} s")
+    log(f"[26 elapsed] phases 1-26 in {time.perf_counter() - t0:.1f} s")
 
     h = N_FFT // 2
     # Per kernel, at the shapes its time was taken at: (bytes of its inputs
@@ -3285,6 +3412,9 @@ def main() -> int:
         "lowlat_rigid": latency_cuda.lowlat_work(1024, 5),
         "halfspec_fused": fft_cuda.halfspec_work(BATCH, N_FFT),
         "prominence_scans": detector_cuda.scans_work(BATCH, h, 32),
+        # The cluster kernels at phase 5's N=131072 rows (B=16, H=65536).
+        "prominence_select_scan_cluster": detector_cuda.select_scan_work(16, N_LONG // 2, 32),
+        "prominence_scans_cluster": detector_cuda.scans_work(16, N_LONG // 2, 32),
     }
     rows = [{
         "name": "prominence_select_scan",
@@ -3327,6 +3457,22 @@ def main() -> int:
         "max_abs_err": scan_err,
         **new_times["prominence_scans"],
     })
+    # The cluster kernels are held bit-equal to their twins (phases 3, 5, 12
+    # and 26): no float of theirs differs.
+    for name, source, replaces, main_launches in (
+            ("prominence_select_scan_cluster", KERNEL_SOURCE, KERNEL_REPLACES, long_launches),
+            ("prominence_scans_cluster", SCANS_SOURCE, SCANS_REPLACES, long_scan_launches)):
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": main_launches + path_launches[name],
+            "max_abs_err": 0.0,
+            "ms": long_times[name]["ms"],
+            "plain_ms": long_times[name]["plain_ms"],
+            "library_ms": None,
+        })
     for row in rows:
         row["bound_ms"], row["bound_by"] = bound(*work[row["name"]])
     log(json.dumps({"kernels": rows}))

@@ -620,3 +620,47 @@ def test_n_required_is_the_smallest_exact_budget_on_b1():
             assert int(res.n_required[0]) == nreq
         if nreq > 1:
             assert int(run(nreq - 1).n_required[0]) > nreq - 1
+
+
+def _assert_slots_bit_equal(got, want, case):
+    for name, g, w in zip(_SLOT_FIELDS, got, want):
+        assert torch.equal(g, w), (case, name)
+
+
+@pytest.mark.gpu
+def test_long_row_clusters_are_bit_equal_to_their_twins():
+    """B1's and B5's cluster kernels (rows past a block's shared memory)
+    against their plain twins on the card: every output the same bits."""
+    _need_card()
+    for h in (57857, 58113, 65536, 131072):
+        for b in (1, 16, 64):
+            mags = torch.from_numpy(_spectra(b, h, seed=h + b)).cuda()
+            for m in (2, 12, 32, 128):
+                case = f"H={h} B={b} M={m}"
+                got = detector_cuda.prominence_select_scan(mags, m)
+                want = detector_cuda._prominence_select_scan_plain(mags, m)
+                _assert_slots_bit_equal(got, want, case)
+                n_valid = want[1].sum(-1).to(torch.int32)
+                got = detector_cuda.prominence_scans(mags, want[0], want[2], n_valid)
+                want = detector_cuda._prominence_scans_plain(mags, want[0], want[2], n_valid)
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), case
+
+
+@pytest.mark.gpu
+def test_select_scan_threshold_on_fresh_rows():
+    """B1 against its twin on rows drawn anew each run (the seed is
+    printed): ``std`` and ``n_cand`` equal, whatever the rows."""
+    _need_card()
+    seed = int.from_bytes(os.urandom(4), "little")
+    print(f"fresh-row seed {seed}")
+    rng = np.random.default_rng(seed)
+    for h, b in ((2048, 512), (32768, 64), (65536, 32)):
+        x = rng.random((b, h)) * rng.uniform(0.1, 5.0, (b, 1))
+        for _ in range(4):
+            x[np.arange(b), rng.integers(1, h - 1, b)] += rng.uniform(1.0, 500.0, b)
+        mags = torch.from_numpy(x.astype(np.float32)).cuda()
+        got = detector_cuda.prominence_select_scan(mags, 12)
+        want = detector_cuda._prominence_select_scan_plain(mags, 12)
+        assert torch.equal(got[5], want[5]), (seed, h, "std")
+        assert torch.equal(got[6], want[6]), (seed, h, "n_cand")

@@ -2,21 +2,25 @@
 
 The select+scan kernel (B1, ``csrc/prominence_select_scan.cu``) and the
 scans kernel (B5, ``csrc/prominence_scans.cu``) keep a row of up to
-``kSharedMaxH`` bins in shared memory; a longer row takes a second
-instantiation of each kernel that reads the row from device memory.  Checked
+``kSharedMaxH`` bins in shared memory; a longer row takes a cluster kernel:
+one thread-block cluster of ``kClusterSize`` CTAs a row
+(``csrc/cluster_common.cuh``), CTA r holding segment r of the row.  Checked
 here on the CPU:
 
-* that instantiation's host plan, mirrored from the sources' constants: its
-  shared part (the candidate list with its pick slots, then the chunk
-  summaries while they fit) stays inside the 227 KB a block may use for
-  every H from the first long row to 2**20, and the summaries go to the
-  global workspace past what fits;
+* the cluster plan, mirrored from the sources' constants: each CTA's shared
+  memory (its list, winners, pick slots and chunk summaries, then its
+  segment while that fits) stays inside the 227 KB a block may use for
+  every H from the first long row to 2**20 at any budget; the segments are
+  chunk-aligned, cover [0, H) and depend on H alone, as the plain twin's
+  threshold order (``ops/stats.py``) takes them; the segment leaves shared
+  memory where the plan says;
 * the port's ``analyze_epoch`` at N = 131072 in flexible and adaptive mode
   against the JAX package's and the float64 oracle (on the CPU the detector
   runs its plain twin).
 
-``test_torch_gpu_card.py`` runs the same epochs on the card against the CPU
-run; ``chip_smoke.py`` (phases 3, 5 and 12) covers the kernels there.
+``test_torch_gpu_card.py`` runs the cluster kernels against their twins and
+the same epochs on the card; ``chip_smoke.py`` (phases 3, 5, 12 and 26)
+covers the kernels there.
 """
 
 import os
@@ -29,7 +33,7 @@ import torch
 
 from apda_fft_tpu.models import pipeline as jpipe
 from apda_fft_tpu_torch.models import pipeline as tpipe
-from apda_fft_tpu_torch.ops import detector_cuda
+from apda_fft_tpu_torch.ops import detector_cuda, stats
 from apda_fft_tpu_torch.utils import kernels
 from tests.oracle import oracle_analyze
 from tests.signals import modal_signal
@@ -39,30 +43,54 @@ FS = 500.0
 N_LONG = 131072
 
 
-def _constant(source: str, name: str) -> int:
+def _source(source: str) -> str:
     with open(os.path.join(kernels.CSRC_DIR, source)) as f:
-        text = f.read()
-    expr = re.search(rf"constexpr \w+ {name} = ([0-9 *+\-]+);", text).group(1)
+        return f.read()
+
+
+def _constant(source: str, name: str) -> int:
+    expr = re.search(rf"constexpr \w+ {name} = ([0-9 *+\-]+);", _source(source)).group(1)
     return int(eval(expr))  # a constant expression of integers from the source
 
 
 MAX_LIST = _constant("walk_common.cuh", "kMaxList")
-#: (source, static shared bytes kept beside the dynamic part, bytes of the
-#: candidate list and pick slots a long row keeps in shared memory).
+CLUSTER = _constant("cluster_common.cuh", "kClusterSize")
+STRIDE = _constant("cluster_common.cuh", "kSegmentStride")
+WARPS = _constant("prominence_select_scan.cu", "kMaxThreads") // 32
+#: (source, static shared bytes kept beside the dynamic part).
 KERNELS = {
-    "select_scan": ("prominence_select_scan.cu", 1024, 12 * MAX_LIST),
-    "scans": ("prominence_scans.cu", 0, 0),
+    "select_scan": ("prominence_select_scan.cu", 1024),
+    "scans": ("prominence_scans.cu", 0),
 }
 
 
-def long_plan(kernel: str, b: int, h: int) -> dict:
-    """``plan()`` of the kernel's source for a row past ``kSharedMaxH``."""
-    source, _, list_bytes = KERNELS[kernel]
-    cap = _constant(source, "kSmemCap")
-    sums = 8 * ((h + 31) // 32)
-    in_smem = list_bytes + sums <= cap
-    return {"smem": list_bytes + (sums if in_smem else 0),
-            "ws_floats": 0 if in_smem else b * sums // 4, "summaries_smem": in_smem, "cap": cap}
+def segment_bins(h: int) -> int:
+    """``segment_bins()`` of ``cluster_common.cuh``."""
+    return (h + CLUSTER * STRIDE - 1) // (CLUSTER * STRIDE) * STRIDE
+
+
+def cluster_plan(kernel: str, h: int, m: int) -> dict:
+    """The cluster kernel's plan of one CTA's dynamic shared memory at
+    (h, m), from its source's constants."""
+    cap = _constant(KERNELS[kernel][0], "kSmemCap")
+    seg = segment_bins(h)
+    per = seg // 32
+    if kernel == "scans":
+        seg_smem = 8 * per + 4 * seg <= cap
+        seg_bytes = 4 * seg if seg_smem else 0
+        whole = 8 * CLUSTER * per + seg_bytes <= cap
+        return {"seg": seg, "seg_smem": seg_smem, "whole": whole, "cap": cap,
+                "smem": 8 * (CLUSTER if whole else 1) * per + seg_bytes}
+    warps = CLUSTER * WARPS
+    fixed = 8 * MAX_LIST + 8 * MAX_LIST + 4 * (CLUSTER * MAX_LIST // warps * WARPS)
+    seg_smem = fixed + 8 * per + 4 * (seg + 8) <= cap
+    seg_bytes = 4 * (seg + 8) if seg_smem else 0
+    whole = fixed + 8 * CLUSTER * per + seg_bytes <= cap
+    win = (min(m, MAX_LIST) + 1) & ~1
+    picks = -(-min(m, CLUSTER * MAX_LIST) // warps) * WARPS
+    return {"seg": seg, "seg_smem": seg_smem, "whole": whole, "cap": cap,
+            "smem": 8 * MAX_LIST + 8 * win + 8 * (CLUSTER if whole else 1) * per + 4 * picks
+            + seg_bytes}
 
 
 def shared_max_h(kernel: str) -> int:
@@ -70,32 +98,70 @@ def shared_max_h(kernel: str) -> int:
     return _constant(source, "kSmemCap") // 4
 
 
-LONG_HS = [57857, 58113, 65536, 131072, 262144, 524288, 729088, 729089, 929792, 929793, 1 << 20]
+#: The longest rows whose segment stays in a CTA's shared memory.
+SEGMENT_SMEM_MAX_H = {"select_scan": 280576, "scans": 437248}
+#: The rows whose CTAs each hold the whole row's chunk summaries: while they
+#: fit beside the segment, and again past it while they fit alone.
+WHOLE_SUMMARIES = {"select_scan": ((57857, 198656), (280577, 598016)),
+                   "scans": ((58113, 309248), (437249, 929792))}
+LONG_HS = [57857, 58113, 65536, 131072, 198656, 198657, 262144, 280576, 280577, 309248,
+           309249, 437248, 437249, 524288, 598016, 598017, 729088, 729089, 929792, 929793,
+           1 << 20]
 
 
 @pytest.mark.parametrize("kernel, h", [(k, h) for k in sorted(KERNELS) for h in LONG_HS
                                        if h > shared_max_h(k)])
 def test_long_row_plan_fits(kernel, h):
-    _, static, _ = KERNELS[kernel]
-    plan = long_plan(kernel, 16, h)
-    assert plan["cap"] + static == BLOCK_SMEM
-    assert plan["smem"] + static <= BLOCK_SMEM
-    n_chunks = (h + 31) // 32
-    if plan["summaries_smem"]:
-        assert plan["ws_floats"] == 0
-    else:
-        assert plan["ws_floats"] == 16 * 2 * n_chunks
-    # Where the summaries first leave shared memory: ~729 K bins for the
-    # select+scan kernel (beside its list), ~930 K for the scans kernel.
-    first_out = {"select_scan": 729089, "scans": 929793}[kernel]
-    assert plan["summaries_smem"] == (h < first_out)
+    _, static = KERNELS[kernel]
+    for m in (1, 2, 32, 128, 4096, h):
+        plan = cluster_plan(kernel, h, m)
+        assert plan["cap"] + static == BLOCK_SMEM
+        assert plan["smem"] + static <= BLOCK_SMEM, (m, plan)
+    # Chunk-aligned segments, in rank order, covering [0, h); the last one
+    # is shorter but not empty.
+    seg = plan["seg"]
+    assert seg % 32 == 0 and seg % 4 == 0
+    bounds = [(r * seg, min((r + 1) * seg, h)) for r in range(CLUSTER)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == h
+    assert all(lo < hi for lo, hi in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    # The twin's threshold order takes the same segments.
+    assert stats.threshold_segment(h) == seg and stats.THRESHOLD_CLUSTER == CLUSTER
+    assert plan["seg_smem"] == (h <= SEGMENT_SMEM_MAX_H[kernel])
+    assert plan["whole"] == any(lo <= h <= hi for lo, hi in WHOLE_SUMMARIES[kernel])
+
+
+def test_cluster_size_depends_on_h_alone():
+    # kClusterSize is a constant (8, a portable cluster size), the segments
+    # a function of h alone: no batch, budget or device enters them.
+    assert CLUSTER == 8 == detector_cuda.CLUSTER_SIZE
+    assert re.search(r"int segment_bins\(int h\)", _source("cluster_common.cuh"))
+    for name, _ in KERNELS.values():
+        text = _source(name)
+        assert "segment_bins(h)" in text
+        assert "cudaLaunchAttributeClusterDimension" not in text  # one launcher
+    launcher = _source("cluster_common.cuh")
+    assert "cudaLaunchAttributeClusterDimension" in launcher
+    assert "cudaOccupancyMaxActiveClusters" in launcher
 
 
 def test_long_rows_start_past_the_shared_route():
     # The select+scan kernel keeps 1 KB of static scratch; the scans kernel none.
-    assert shared_max_h("select_scan") == 57856
+    assert shared_max_h("select_scan") == 57856 == stats.THRESHOLD_SHARED_MAX_H
     assert shared_max_h("scans") == 58112
+    assert detector_cuda.SELECT_SCAN_SHARED_MAX_H == shared_max_h("select_scan")
+    assert detector_cuda.SCANS_SHARED_MAX_H == shared_max_h("scans")
     assert not hasattr(detector_cuda, "_check_h") and not hasattr(detector_cuda, "MAX_H")
+
+
+def test_one_kernel_per_route():
+    # The one-block long-row kernels and their workspace are gone.
+    for name, _ in KERNELS.values():
+        text = _source(name)
+        assert "_long_kernel" not in text and "workspace" not in text
+        assert "cluster_kernel" in text
+    assert "noise_threshold_long" not in _source("prominence_select_scan.cu")
+    assert not hasattr(detector_cuda, "_workspace")
 
 
 def _long_epoch() -> np.ndarray:
