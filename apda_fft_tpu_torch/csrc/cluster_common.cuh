@@ -2,8 +2,10 @@
 // the row's split into segments, the walks' view of a row spread over a
 // cluster, and the cluster launch.
 //
-// Included by prominence_select_scan.cu (B1) and prominence_scans.cu (B5),
-// whose cluster kernels take one row per cluster of kClusterSize CTAs: CTA r
+// Included by lowlat_window.cu (B2 and B3, whose cluster kernels spread one
+// window's FFT buffers over a cluster; they use the launch alone) and by
+// prominence_select_scan.cu (B1) and prominence_scans.cu (B5), whose
+// cluster kernels take one row per cluster of kClusterSize CTAs: CTA r
 // holds segment r of the row (in its shared memory while it fits, else in
 // device memory) and the 32-bin chunk summaries of that segment; a warp's
 // walk reads the other CTAs' bins over distributed shared memory, and their

@@ -20,9 +20,14 @@
 // one bank.
 //
 // The threads of one row are `first`, `first + stride`, ...: a slice of a
-// block (halfspec_fused.cu, several rows a block at small n) or the whole
-// block (lowlat_window.cu, one window).  Every thread of the block reaches
-// the barriers of `fft_passes`.  Build without fast math.
+// block (halfspec_fused.cu, several rows a block at small n), the whole
+// block (lowlat_window.cu, one window), or the CTAs of a thread-block
+// cluster (lowlat_window.cu's cluster kernels, whose exchange buffers are
+// spread over the CTAs' shared memory).  The pass, pack and split read and
+// write a buffer through a view (`buf[i]` is point i: `Padded` for a buffer
+// in one block's memory), so every layout runs the same arithmetic.  Every
+// thread of the block reaches the barriers of `fft_passes`.  Build without
+// fast math.
 
 #pragma once
 
@@ -36,6 +41,14 @@ constexpr float kSqrtHalf = 0.70710678118654752f;
 // Points of one exchange buffer: every 16th slot is skipped.
 __host__ __device__ __forceinline__ int padded(int l) { return l + (l >> 4); }
 __device__ __forceinline__ int pad(int i) { return i + (i >> 4); }
+
+// An exchange buffer in one block's memory (shared, or a workspace): point
+// i at slot pad(i).
+template <typename T>
+struct Padded {
+  T* p;
+  __device__ __forceinline__ T& operator[](int i) const { return p[pad(i)]; }
+};
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) { return {a.x + b.x, a.y + b.y}; }
 __device__ __forceinline__ float2 csub(float2 a, float2 b) { return {a.x - b.x, a.y - b.y}; }
@@ -100,8 +113,8 @@ __device__ __forceinline__ void dft(float2* v) {
 // One radix-R Stockham pass over L = l points: the sub-transforms of length
 // ns become length ns*R.  Butterfly b reads src[b + r*l/R], twiddles point r
 // by W_(ns*R)^(r*k), k = b mod ns, and writes dst[(b-k)*R + k + r*ns].
-template <int R>
-__device__ __forceinline__ void stockham_pass(const float2* src, float2* dst, int l, int ns,
+template <int R, typename Src, typename Dst>
+__device__ __forceinline__ void stockham_pass(const Src src, const Dst dst, int l, int ns,
                                               int first, int stride,
                                               const float2* __restrict__ t) {
   const int nb = l / R;
@@ -110,7 +123,7 @@ __device__ __forceinline__ void stockham_pass(const float2* src, float2* dst, in
     const int k = b & (ns - 1);
     float2 v[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) v[r] = src[pad(b + r * nb)];
+    for (int r = 0; r < R; ++r) v[r] = src[b + r * nb];
     if (ns > 1) {  // the first pass's twiddles are all W^0 = 1
 #pragma unroll
       for (int r = 1; r < R; ++r) v[r] = cmul(v[r], twiddle(t, r * k * step, l));
@@ -118,17 +131,17 @@ __device__ __forceinline__ void stockham_pass(const float2* src, float2* dst, in
     dft<R>(v);
     const int d = (b - k) * R + k;
 #pragma unroll
-    for (int r = 0; r < R; ++r) dst[pad(d + r * ns)] = v[r];
+    for (int r = 0; r < R; ++r) dst[d + r * ns] = v[r];
   }
 }
 
-// Pack of the row x (16-byte aligned) into a: one float4 is the two complex
-// points z[2q], z[2q+1]; with kCentre each sample first loses `mean`
-// (rounded subtraction).  Four independent 16-byte loads in flight per
-// thread.
-template <bool kCentre>
-__device__ __forceinline__ void pack_row(const float* __restrict__ x, float mean, float2* a,
-                                         int l, int first, int stride) {
+// Pack of the row x (16-byte aligned) into the buffer view a: one float4 is
+// the two complex points z[2q], z[2q+1]; with kCentre each sample first
+// loses `mean` (rounded subtraction).  Four independent 16-byte loads in
+// flight per thread.
+template <bool kCentre, typename Buf>
+__device__ __forceinline__ void pack_points(const float* __restrict__ x, float mean, const Buf a,
+                                            int l, int first, int stride) {
   const float4* src = reinterpret_cast<const float4*>(x);
   for (int q0 = first; q0 < l / 2; q0 += 4 * stride) {
     float4 v[4];
@@ -144,11 +157,17 @@ __device__ __forceinline__ void pack_row(const float* __restrict__ x, float mean
           v[u] = make_float4(__fsub_rn(v[u].x, mean), __fsub_rn(v[u].y, mean),
                              __fsub_rn(v[u].z, mean), __fsub_rn(v[u].w, mean));
         }
-        a[pad(2 * q)] = {v[u].x, v[u].y};
-        a[pad(2 * q + 1)] = {v[u].z, v[u].w};
+        a[2 * q] = {v[u].x, v[u].y};
+        a[2 * q + 1] = {v[u].z, v[u].w};
       }
     }
   }
+}
+
+template <bool kCentre>
+__device__ __forceinline__ void pack_row(const float* __restrict__ x, float mean, float2* a,
+                                         int l, int first, int stride) {
+  pack_points<kCentre>(x, mean, Padded<float2>{a}, l, first, stride);
 }
 
 // The Stockham passes over the packed points in a, exchanging through c;
@@ -160,9 +179,9 @@ __device__ __forceinline__ void fft_passes(float2*& a, float2*& c, int l, int fi
   const int rem = (31 - __clz(l)) % 3;
   if (rem != 0) {
     if (rem == 1) {
-      stockham_pass<2>(a, c, l, ns, first, stride, t);
+      stockham_pass<2>(Padded<const float2>{a}, Padded<float2>{c}, l, ns, first, stride, t);
     } else {
-      stockham_pass<4>(a, c, l, ns, first, stride, t);
+      stockham_pass<4>(Padded<const float2>{a}, Padded<float2>{c}, l, ns, first, stride, t);
     }
     ns <<= rem;
     float2* s = a;
@@ -171,7 +190,7 @@ __device__ __forceinline__ void fft_passes(float2*& a, float2*& c, int l, int fi
     __syncthreads();
   }
   for (; ns < l; ns *= 8) {
-    stockham_pass<8>(a, c, l, ns, first, stride, t);
+    stockham_pass<8>(Padded<const float2>{a}, Padded<float2>{c}, l, ns, first, stride, t);
     float2* s = a;
     a = c;
     c = s;
@@ -183,16 +202,18 @@ __device__ __forceinline__ float mag(float re, float im) {
   return __fsqrt_rn(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)));
 }
 
-// Split of the packed transform Z (in a) into the real one's magnitudes
-// o[k], k < l, in bin order, DC 0.
-__device__ __forceinline__ void split_mags(const float2* a, const float2* __restrict__ t,
-                                           float* o, int l, int first, int stride) {
+// Split of the packed transform Z (the buffer view a) into the real one's
+// magnitudes o[k], k < l, in bin order, DC 0 (`o[k] = v` stores them: a
+// pointer, or a view of the places they go).
+template <typename Buf, typename Mags>
+__device__ __forceinline__ void split_points(const Buf a, const float2* __restrict__ t,
+                                             const Mags o, int l, int first, int stride) {
   for (int k = first; k <= l / 2; k += stride) {
     if (k == 0) {
       o[0] = 0.f;
       continue;
     }
-    const float2 za = a[pad(k)], zb = a[pad(l - k)];
+    const float2 za = a[k], zb = a[l - k];
     const float er = 0.5f * (za.x + zb.x), ei = 0.5f * (za.y - zb.y);
     const float orr = 0.5f * (za.x - zb.x), oi = 0.5f * (za.y + zb.y);
     const float2 w = __ldg(t + k);
@@ -201,6 +222,11 @@ __device__ __forceinline__ void split_mags(const float2* a, const float2* __rest
     o[k] = mag(er + pi, ei - pr);
     if (l - k != k) o[l - k] = mag(er - pi, ei + pr);
   }
+}
+
+__device__ __forceinline__ void split_mags(const float2* a, const float2* __restrict__ t,
+                                           float* o, int l, int first, int stride) {
+  split_points(Padded<const float2>{a}, t, o, l, first, stride);
 }
 
 }  // namespace apda

@@ -19,8 +19,13 @@ launches per kernel.
 Both kernels read only the FFT's twiddle table, built in float64 on the
 host and cached per window length and device: ``ops.fft_cuda._twiddle_table``
 (the batched front-end kernel's).  They take windows of 64 to
-``LOWLAT_MAX_N`` samples: the magnitudes must fit in one block's shared
-memory.
+``LOWLAT_MAX_N`` samples.  From ``CLUSTER_MIN_N`` samples on, where the
+FFT's exchange buffers outgrow one block's shared memory, a window runs on
+a second kernel per mode: one thread-block cluster, the buffers spread over
+its CTAs' shared memory, the magnitudes and the detector on its first CTA
+(whose shared memory must hold them: hence ``LOWLAT_MAX_N``).  Those
+launches count under their own names.  A cluster the card cannot place
+raises.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch
 
 from apda_fft_tpu_torch.models.pipeline import _placed, default_k, refine_subbin
 from apda_fft_tpu_torch.models.results import EpochResult
+from apda_fft_tpu_torch.ops.detector_cuda import _NOT_PLACED, CLUSTER_SIZE
 from apda_fft_tpu_torch.ops.fft import halfspec_magnitudes, is_pow2, next_pow2
 from apda_fft_tpu_torch.ops.fft_cuda import _twiddle_table, rfft_mag_flops
 from apda_fft_tpu_torch.ops.peaks_prominence import (
@@ -44,20 +50,32 @@ from apda_fft_tpu_torch.ops.stats import div_exact
 from apda_fft_tpu_torch.utils import kernels
 
 #: Kernel launches so far, per kernel (one per call on a CUDA tensor).
-launches = {"lowlat_flexible": 0, "lowlat_rigid": 0}
+launches = {"lowlat_flexible": 0, "lowlat_rigid": 0, "lowlat_flexible_cluster": 0,
+            "lowlat_rigid_cluster": 0}
 
-#: Longest window the kernel takes: its N/2 magnitudes live in one block's
-#: shared memory (227 KB on Hopper), the rest spills to a global workspace.
+#: Longest window the kernels take: the window's N/2 magnitudes must fit in
+#: the shared memory of one block, or of a cluster's first CTA (227 KB on
+#: Hopper).
 LOWLAT_MAX_N = 65536
+#: Shortest window that runs on the cluster kernels (``csrc/lowlat_window.cu``
+#: ``layout()``): from here the two FFT exchange buffers outgrow one block.
+CLUSTER_MIN_N = 32768
 
 #: Threads of a block per kernel, pinned (a multiple of 32, at most 1024), or
 #: None for the count by window length of :func:`_block_threads`.
 _THREADS: dict[str, int | None] = {"flexible": None, "rigid": None}
 
 
+def kernel_name(mode: str, n: int) -> str:
+    """The kernel an ``n``-sample window launches in ``mode``, as
+    :data:`launches` counts it."""
+    return f"lowlat_{mode}" + ("_cluster" if n >= CLUSTER_MIN_N else "")
+
+
 def _block_threads(mode: str, n: int) -> int:
-    """N/8 threads, at least 256 and at most 1024: on an H100 the fastest of
-    256 / 512 / 1024 for both kernels at N = 1024, 4096, 16384 and 65536
+    """N/8 threads, at least 256 and at most 1024 (a block, or each CTA of
+    a cluster): on an H100 the fastest of 256 / 512 / 1024 for both kernels
+    at N = 1024, 4096, 16384, and 32768 and 65536 on the cluster kernels
     (``chip_profile.py --block-sizes``, PERF.md).  Longer windows have more
     FFT butterflies and bins a pass; shorter ones gain from the shorter
     block reductions and barriers of fewer warps."""
@@ -76,14 +94,14 @@ def _kernel_fn():
         fn.argtypes = [
             ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
-        ws = lib.apda_lowlat_workspace_floats
-        ws.restype = ctypes.c_longlong
-        ws.argtypes = [ctypes.c_int]
+        smem = lib.apda_lowlat_smem_bytes
+        smem.restype = ctypes.c_longlong
+        smem.argtypes = [ctypes.c_int]
         lib.apda_cuda_error_string.restype = ctypes.c_char_p
         lib.apda_cuda_error_string.argtypes = [ctypes.c_int]
-        _fn = (fn, ws, lib.apda_cuda_error_string)
+        _fn = (fn, smem, lib.apda_cuda_error_string)
     return _fn
 
 
@@ -134,21 +152,25 @@ def _launch(x: torch.Tensor, fs: torch.Tensor, *, mode: str, k: int, budget: int
             f"{LOWLAT_MAX_N} (its magnitudes must fit in one block's shared memory)"
         )
     rigid = mode == "rigid"
-    fn, ws_floats, err_str = _kernel_fn()
+    fn, smem_bytes, err_str = _kernel_fn()
     table = _twiddle_table(n, x.device)
     if x.data_ptr() % 16:  # the kernels read the window as float4
         x = x.clone()
     iout = torch.empty(k + 3, dtype=torch.int32, device=x.device)
     fout = torch.empty(6 * k, dtype=torch.float32, device=x.device)
-    nws = ws_floats(n)
-    ws = torch.empty(nws, dtype=torch.float32, device=x.device) if nws else None
     rc = fn(
         int(rigid), x.data_ptr(), n, table.data_ptr(), fs.data_ptr(),
-        k, budget, int(refine), iout.data_ptr(), fout.data_ptr(),
-        ws.data_ptr() if ws is not None else None, _block_threads(mode, n),
+        k, budget, int(refine), iout.data_ptr(), fout.data_ptr(), _block_threads(mode, n),
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
-    name = "lowlat_rigid" if rigid else "lowlat_flexible"
+    name = kernel_name(mode, n)
+    if rc == _NOT_PLACED:
+        raise RuntimeError(
+            f"{name} launch failed (N={n}, k={k}, budget={budget}): a cluster of "
+            f"{CLUSTER_SIZE} CTAs with {smem_bytes(n)} bytes of shared memory each cannot be "
+            f"placed on {torch.cuda.get_device_name(x.device)} "
+            f"(cudaOccupancyMaxActiveClusters = 0)"
+        )
     if rc != 0:
         raise RuntimeError(
             f"{name} launch failed (N={n}, k={k}, budget={budget}): "

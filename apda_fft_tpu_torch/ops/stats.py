@@ -150,13 +150,15 @@ def _lane_sums(terms: torch.Tensor, compensated: bool) -> torch.Tensor:
 
 
 def _lane_tree(s: torch.Tensor) -> torch.Tensor:
-    """The block reduction of 128 lane sums ``[..., 128]``: an xor butterfly
-    within each warp of 32 lanes, then the four warp sums in order."""
-    lanes = torch.arange(THRESHOLD_LANES, device=s.device)
+    """The block reduction (``detector_common.cuh`` ``block_reduce``) of the
+    lane sums ``[..., lanes]`` of a block of ``lanes`` threads (128 in the
+    select+scan kernel's order): an xor butterfly within each warp of 32
+    lanes, then the warp sums in order."""
+    lanes = torch.arange(s.shape[-1], device=s.device)
     for o in (16, 8, 4, 2, 1):
         s = s + s[..., lanes ^ o]
     total = s[..., 0]
-    for w in range(1, THRESHOLD_LANES // 32):
+    for w in range(1, s.shape[-1] // 32):
         total = total + s[..., 32 * w]
     return total
 

@@ -8,6 +8,7 @@
     python3 chip_profile.py --paths         # item 6 only, ~1 min
     python3 chip_profile.py --fast-modes    # item 7 only, ~1 min
     python3 chip_profile.py --threshold-order   # item 8 only, ~30 s
+    python3 chip_profile.py --lowlat-against OTHER_TREE   # item 9 only, ~1 min
 
 1. profile: flexible ``analyze_epoch`` (refine, lowlat="never") on the
    B=2048 x N=4096 clean and noisy corpora of ``chip_smoke.py``, after two
@@ -27,8 +28,9 @@
    wrong); a last child runs the unguarded four-step with oneDNN's and MKL's
    verbose logs on and reports which GEMM paths it took;
 4. block sizes: the profiler's device time of the single-window kernels
-   at 256, 512 and 1024 threads (pinned in ``latency_cuda._THREADS``) on
-   two-tone windows at N=1024 (cfg1's), 4096 (cfg2's), 16384 and 65536,
+   at 256, 512 and 1024 threads a block or CTA (pinned in
+   ``latency_cuda._THREADS``) on two-tone windows at N=1024 (cfg1's), 4096
+   (cfg2's), 16384, and 32768 and 65536 (the cluster kernels),
    and of the flexible one also on the 71-candidate window at M=64; and of
    the scans kernel at 128 and 256
    threads (``detector_cuda._SCANS_THREADS``) on the noisy spectra at M in
@@ -59,6 +61,18 @@
    (which sets the noise threshold) differs in any bit, and the rows whose
    candidate count differs; the check fails unless both are 0.
 
+9. single-window kernels against another checkout's (``--lowlat-against
+   OTHER_TREE``, e.g. a ``git archive`` of the parent commit): every call of
+   ``chip_smoke.py`` phase 7 (both modes, N 64..65536, its budgets and its
+   overflow windows) and 16 windows drawn at run time (modal and noise,
+   N=32768 and 65536) through this tree's ``analyze_window_lowlat`` and
+   through the other tree's, built from its own sources in a child process;
+   reports the outputs (call x field) that differ in any bit, per kernel,
+   and fails unless there are none; then times both trees' kernels on
+   two-tone windows at N in {4096, 32768, 65536} (profiler device time,
+   CUDA-event call, routed ``analyze_epoch`` host wall), each tree in a
+   fresh process, in the order other, this, this, other.
+
 Every line carries the card's name and power limit.  Exit code 0 unless a
 check fails; the probe's mismatches are reported, not raised.
 """
@@ -68,6 +82,7 @@ from __future__ import annotations
 import argparse
 import collections
 import glob
+import json
 import os
 import re
 import subprocess
@@ -278,15 +293,18 @@ def block_sizes(noisy: np.ndarray, card: str) -> None:
                ("flexible", "cfg2 N=4096 budget 2", two_tone(1, 4096)[0], 2),
                ("flexible", "71-candidate window N=4096 M=64", chip_smoke.overflow_window(), 64),
                ("flexible", "two-tone N=16384 budget 2", two_tone(1, 16384)[0], 2),
+               ("flexible", "two-tone N=32768 budget 2", two_tone(1, 32768)[0], 2),
                ("flexible", "two-tone N=65536 budget 2", two_tone(1, 65536)[0], 2),
                ("rigid", "cfg1 N=1024", two_tone(1, 1024)[0], 2),
                ("rigid", "two-tone N=4096", two_tone(1, 4096)[0], 2),
                ("rigid", "two-tone N=16384", two_tone(1, 16384)[0], 2),
+               ("rigid", "two-tone N=32768", two_tone(1, 32768)[0], 2),
                ("rigid", "two-tone N=65536", two_tone(1, 65536)[0], 2))
     saved = dict(latency_cuda._THREADS)
     try:
         for mode, label, xn, m in windows:
             x = torch.from_numpy(xn).cuda()
+            name = latency_cuda.kernel_name(mode, xn.shape[0])
 
             def run():
                 return latency_cuda.analyze_window_lowlat(x, fs, mode=mode, max_candidates=m,
@@ -299,9 +317,9 @@ def block_sizes(noisy: np.ndarray, card: str) -> None:
                 res = run()
                 decisions.add(tuple(torch.cat([res.idx[0], res.count, res.n_candidates,
                                                res.n_required]).tolist()))
-                times[threads].append(chip_smoke._kernel_device_ms(run, f"lowlat_{mode}"))
+                times[threads].append(chip_smoke._kernel_device_ms(run, f"{name}_kernel"))
             assert len(decisions) == 1, (label, decisions)
-            log(f"[block sizes] lowlat_{mode} {label}: device ms " + "; ".join(
+            log(f"[block sizes] {name} {label}: device ms " + "; ".join(
                 f"{t} threads {' / '.join(f'{v:.4f}' for v in times[t])}" for t in sorted(times))
                 + f" (profiler, mean of 20; same decisions; {card})")
     finally:
@@ -460,6 +478,125 @@ def threshold_order(corpora: dict[str, np.ndarray], card: str) -> None:
     chip_smoke.phase_threshold_order(corpora, card)
 
 
+#: Runs in the other tree (its package first on the path): the windows of
+#: argv[1] through its ``analyze_window_lowlat`` on the card, outputs to argv[2].
+_LOWLAT_CHILD = """
+import json, sys
+import numpy as np, torch
+from apda_fft_tpu_torch.ops import latency_cuda
+data = np.load(sys.argv[1])
+calls = json.loads(str(data["calls"]))
+out = {}
+fs = torch.tensor(500.0, device="cuda")
+for i, kw in enumerate(calls):
+    res = latency_cuda.analyze_window_lowlat(torch.from_numpy(data[f"x{i}"]).cuda(), fs, **kw)
+    for f in res._fields:
+        out[f"{i}.{f}"] = getattr(res, f).cpu().numpy()
+np.savez(sys.argv[2], **out)
+"""
+
+
+#: Runs in either tree: times its single-window kernels on two-tone windows
+#: (its own ``chip_smoke`` helpers), one JSON line.
+_LOWLAT_TIMES_CHILD = """
+import json
+import torch
+import chip_smoke as c
+from apda_fft_tpu_torch.models import pipeline
+from apda_fft_tpu_torch.ops import latency_cuda
+fs = torch.tensor(c.FS, device="cuda")
+out = {}
+for n in (4096, 32768, 65536):
+    x = torch.from_numpy(c.clean_batch(1, n)[0]).cuda()
+    for mode in ("flexible", "rigid"):
+        def kernel():
+            return latency_cuda.analyze_window_lowlat(x, fs, mode=mode, max_candidates=2,
+                                                      refine=True)
+        kernel()
+        dev = c._kernel_device_ms(kernel, f"lowlat_{mode}")
+        call = c.event_ms(kernel)
+        pipeline.reset_dynamic_state()
+        routed = c._wall_ms(lambda: pipeline.analyze_epoch(x[None], c.FS, mode=mode,
+                                                           refine=True), runs=20)
+        out[f"{mode} N={n}"] = [dev, call, routed]
+print(json.dumps(out))
+"""
+
+
+def _tree_times(tree: str) -> dict[str, list[float]]:
+    proc = subprocess.run([sys.executable, "-c", _LOWLAT_TIMES_CHILD], cwd=tree,
+                          env={**os.environ, "PYTHONPATH": os.path.abspath(tree)},
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def lowlat_calls() -> list[tuple[str, np.ndarray, dict]]:
+    """Phase 7's calls of ``analyze_window_lowlat`` and 16 windows drawn at
+    run time: (label, window, keyword arguments)."""
+    calls = []
+    for n in chip_smoke.LOWLAT_NS:
+        for kind in ("modal", "noise", "impulse", "flat"):
+            x = chip_smoke.lowlat_window(n, kind)
+            calls.append((f"{kind} N={n} rigid", x, {"mode": "rigid", "refine": True}))
+            for m in chip_smoke.LOWLAT_BUDGETS:
+                calls.append((f"{kind} N={n} flexible M={m}", x,
+                              {"mode": "flexible", "max_candidates": m, "refine": True}))
+    for name, x, k in (("edge-set overflow", chip_smoke.rigid_edge_window(), 100),
+                       ("edge-set overflow", chip_smoke.rigid_edge_window(65536), 100),
+                       ("list overflow", chip_smoke.rigid_list_window(), 5)):
+        calls.append((f"{name} N={x.shape[0]} rigid", x, {"mode": "rigid", "k": k,
+                                                          "refine": True}))
+    seed = int.from_bytes(os.urandom(4), "little")
+    log(f"[lowlat against] fresh windows from seed {seed}")
+    for n in (latency_cuda.CLUSTER_MIN_N, latency_cuda.LOWLAT_MAX_N):
+        for kind in ("modal", "noise"):
+            for s in range(2):
+                x = chip_smoke.lowlat_window(n, kind, seed=seed + s)
+                for mode in ("rigid", "flexible"):
+                    calls.append((f"fresh {kind} N={n} {mode} seed {seed + s}", x,
+                                  {"mode": mode, "max_candidates": 16, "refine": True}))
+    return calls
+
+
+def lowlat_against(other: str, card: str) -> None:
+    """Item 9: this tree's single-window kernels against ``other``'s, bit for bit."""
+    calls = lowlat_calls()
+    fs = torch.tensor(FS, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "windows.npz"), os.path.join(tmp, "outputs.npz")
+        np.savez(src, calls=json.dumps([kw for _, _, kw in calls]),
+                 **{f"x{i}": x for i, (_, x, _) in enumerate(calls)})
+        proc = subprocess.run([sys.executable, "-c", _LOWLAT_CHILD, src, dst],
+                              cwd=other, env={**os.environ, "PYTHONPATH": os.path.abspath(other)},
+                              capture_output=True, text=True, timeout=900)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        theirs = dict(np.load(dst))
+    differ = collections.Counter()
+    per_kernel = collections.Counter()
+    for i, (label, x, kw) in enumerate(calls):
+        res = latency_cuda.analyze_window_lowlat(torch.from_numpy(x).cuda(), fs, **kw)
+        kernel = latency_cuda.kernel_name(kw["mode"], x.shape[0])
+        per_kernel[kernel] += 1
+        for f in res._fields:
+            mine, other_out = getattr(res, f).cpu().numpy(), theirs[f"{i}.{f}"]
+            if mine.shape != other_out.shape or mine.view(np.uint32).tolist() != \
+                    other_out.view(np.uint32).tolist():
+                differ[kernel] += 1
+                log(f"[lowlat against] {label}: {f} differs: {mine.tolist()} here, "
+                    f"{other_out.tolist()} there")
+    log(f"[lowlat against] {len(calls)} calls ({dict(per_kernel)}), 10 outputs each, against "
+        f"{other}: {sum(differ.values())} outputs differ in any bit ({dict(differ)}); {card}")
+    assert not differ, dict(differ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = [(tree, _tree_times(tree)) for tree in (other, here, here, other)]
+    for case in runs[0][1]:
+        log(f"[lowlat times] {case}, budget 2, two-tone window: device / call / routed wall ms "
+            f"(profiler mean of 20, CUDA-event median of 20, host-wall median of 20): " + "; ".join(
+                f"{'other' if tree == other else 'this'} " + " / ".join(
+                    f"{v:.4f}" for v in times[case]) for tree, times in runs) + f"; {card}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--skip-cpu-probe", action="store_true")
@@ -472,6 +609,9 @@ def main() -> int:
                         help="only measure the candidates for precision='fast' (item 7)")
     parser.add_argument("--threshold-order", action="store_true",
                         help="only compare B1's threshold with its plain twin's (item 8)")
+    parser.add_argument("--lowlat-against", metavar="OTHER_TREE",
+                        help="only hold the single-window kernels bit for bit against "
+                             "another checkout's (item 9)")
     parser.add_argument("--sass", metavar="OTHER_TREE",
                         help="only compare the kernels' compiled code with another "
                              "checkout's (item 5)")
@@ -491,6 +631,10 @@ def main() -> int:
     card = chip_smoke.phase_device()
     if args.sass:
         sass_compare(args.sass, card)
+        log(card)
+        return 0
+    if args.lowlat_against:
+        lowlat_against(args.lowlat_against, card)
         log(card)
         return 0
     if args.paths:

@@ -40,28 +40,33 @@ Phases, in order; any failure raises and the exit code is non-zero:
 7. latency kernels vs plain on the card: ``analyze_window_lowlat`` (both
    modes, refine on) against its plain torch version on modal, noise,
    impulse and flat windows at N in {64, 1024, 4096, 16384, 32768, 65536}
-   (32768 the first N whose flexible FFT buffers go to the global
-   workspace) and flexible budgets {2, 8, 16, 64} - integers equal, ``mag`` within rtol
+   (32768 and 65536 on the cluster kernels, the rest on the one-block
+   kernels: each launch is checked to go to its kernel) and flexible
+   budgets {2, 8, 16, 64} - integers equal, ``mag`` within rtol
    1e-5 (one 4-dp step where rounded), ``freq`` within one 4-dp step,
    damping and q within one 2-dp step, ``refined_freq`` within 1e-3 Hz; the
    rigid kernel's integers also equal ``lowlat="never"`` and the float64
-   oracle, there and on two windows past its shared room: one whose edge
-   candidates outgrow their 64 slots mid-run (k=100) and one with 5000
-   candidates, more than its list holds;
+   oracle, there and on three windows past its shared room: two whose edge
+   candidates outgrow their 64 slots mid-run (k=100; N=16384 and 65536) and
+   one with 5000 candidates, more than its list holds (N=65536);
 8. the single-window route: ``analyze_epoch(x[None], fs)`` with the default
-   ``lowlat`` for cfg1 (N=1024, rigid) and cfg2 (N=4096, flexible, refine)
-   and on ``tests/signals.modal_signal`` windows at (1024, 500),
-   (4096, 500) and (2048, 62.5) in both modes: both latency kernels must
-   launch; every kernel call of the route is held against the plain
-   version; decisions equal ``lowlat="never"`` on the card and the float64
-   oracle; a window needing 71 slots goes to the batched path and still
-   equals ``lowlat="never"``;
+   ``lowlat`` for cfg1 (N=1024, rigid) and cfg2 (N=4096, flexible, refine),
+   on ``tests/signals.modal_signal`` windows at (1024, 500),
+   (4096, 500) and (2048, 62.5) in both modes, and on two-tone windows at
+   N=32768 and 65536 in both modes (only the cluster kernels launch): all
+   four latency kernels must launch; every kernel call of the route is held
+   against the plain version; decisions equal ``lowlat="never"`` on the
+   card and the float64 oracle; a window needing 71 slots goes to the
+   batched path and still equals ``lowlat="never"``;
 9. latency times for cfg1 and cfg2: the kernel alone (device time from
    ``torch.profiler``, and CUDA events over back-to-back calls), the routed
    ``analyze_epoch``, ``lowlat="never"`` and the plain version (host wall
    clock with synchronize, median of 50), the flexible kernel at M=64 on
-   the 71-candidate window and at N=65536, and the rigid kernel on
-   two-tone windows at N=4096 and N=65536 (device time and call);
+   the 71-candidate window, the rigid kernel on a two-tone window at
+   N=4096, and both cluster kernels on two-tone windows at N=32768 and
+   65536 (device time, call, plain, the routed call beside
+   ``lowlat="never"``) with the batched front-end kernel's device time on
+   the same window (B=1);
 10. fused front end (``backend="pallas"``) vs plain on the card:
    ``fft_cuda.halfspec_magnitudes_fused`` on centred modal, noise, impulse
    and flat windows at N in {64, 1024, 4096, 16384, 32768, 65536} (16384 the
@@ -255,9 +260,16 @@ Phase 26 holds B1's threshold order:
    times one drawn at run time and printed): ``std`` and ``n_cand`` equal
    in every row (``ops/stats.py`` ``ordered_mean_std``, the order of
    ``csrc/detector_common.cuh``);
+27. B3's threshold order against its twin's on fresh windows (1024 at
+   N=4096, 64 at N=65536, a seed drawn at run time and printed): the
+   windows whose std differs between the kernel's lane order and
+   ``torch.sum`` on the twin's magnitudes, whose candidate count differs
+   between the two thresholds, and whose kernel ``n_candidates`` differs
+   from the twin's (reported);
 
-then one JSON line describing the five kernels and B1's and B5's cluster
-kernels for rows past shared memory, each with its bound (the
+then one JSON line describing the five kernels, B1's and B5's cluster
+kernels for rows past shared memory and B2's and B3's cluster kernels for
+windows of N >= 32768, each with its bound (the
 larger of its bytes over 3.35 TB/s and its float32 operations over
 67 TFLOP/s, computed from the shapes timed) and the time of one PyTorch
 call computing the same function where there is one, the card line, then
@@ -294,6 +306,7 @@ from apda_fft_tpu_torch.ops import (
     resample,
     ringdown,
     srs,
+    stats,
 )
 from apda_fft_tpu_torch.ops.detector_cuda import (
     _prominence_scans_plain,
@@ -872,7 +885,7 @@ def phase_times(corpora: dict[str, np.ndarray], card: str) -> tuple[float, float
 # ---------------------------------------------------------------- latency route
 
 
-#: 32768 is the first N whose flexible FFT buffers go to the workspace.
+#: 32768 and 65536 run on the cluster kernels (FFT buffers spread over 8 CTAs).
 LOWLAT_NS = (64, 1024, 4096, 16384, 32768, 65536)
 LOWLAT_BUDGETS = (2, 8, 16, 64)
 
@@ -972,12 +985,20 @@ def _lowlat_equals_plain(got, want, mode: str, case: str) -> float:
     return err
 
 
+def _launched_one(before: dict[str, int], name: str, case: str) -> None:
+    """Exactly one latency-kernel launch since ``before``, of kernel ``name``."""
+    grew = {k: v - before[k] for k, v in latency_cuda.launches.items() if v != before[k]}
+    assert grew == {name: 1}, (case, name, grew)
+
+
 def phase_lowlat_vs_plain() -> dict[str, float]:
-    """Both latency kernels against their plain version on the card; returns
-    the max abs float difference per kernel."""
+    """Both latency kernels against their plain version on the card, every
+    launch checked to go to the one-block kernel (N <= 16384) or the
+    cluster kernel (N >= 32768) of its mode; returns the max abs float
+    difference per kernel."""
     fs = torch.tensor(FS, device="cuda")
     oracle = _load_oracle()
-    worst = {"lowlat_flexible": 0.0, "lowlat_rigid": 0.0}
+    worst = dict.fromkeys(latency_cuda.launches, 0.0)
     cases = 0
     for n in LOWLAT_NS:
         for kind in ("modal", "noise", "impulse", "flat"):
@@ -985,8 +1006,11 @@ def phase_lowlat_vs_plain() -> dict[str, float]:
             line = []
             for mode, budgets in (("rigid", (2,)), ("flexible", LOWLAT_BUDGETS)):
                 for m in budgets:
+                    key = latency_cuda.kernel_name(mode, n)
+                    before = dict(latency_cuda.launches)
                     got = latency_cuda.analyze_window_lowlat(
                         x, fs, mode=mode, max_candidates=m, refine=True)
+                    _launched_one(before, key, f"{kind} N={n} {mode} M={m}")
                     want = _lowlat_plain(x, fs, mode, got.k, m, True)
                     err = _lowlat_equals_plain(got, want, mode, f"{kind} N={n} {mode} M={m}")
                     if mode == "rigid":
@@ -1000,24 +1024,28 @@ def phase_lowlat_vs_plain() -> dict[str, float]:
                                                     "rigid")
                         c = int(got.count[0])
                         assert got.idx[0, :c].tolist() == [p["idx"] for p in ref], (kind, n)
-                    key = f"lowlat_{mode}"
                     worst[key] = max(worst[key], err)
                     line.append(f"{mode[0]}{m if mode == 'flexible' else ''}:"
                                 f"{int(got.count[0])}/{int(got.n_candidates[0])}")
                     cases += 1
             log(f"[7 lowlat==plain] {kind:7s} N={n:5d}: equal (count/n_cand {' '.join(line)}); "
-                f"rigid also equal to lowlat=never and the float64 oracle")
-    # The rigid kernel's routes past its shared room: the edge set outgrown
-    # mid-run (66 acceptances, past the 64 it keeps in shared memory), and a
-    # candidate list outgrown from the start.
+                f"rigid also equal to lowlat=never and the float64 oracle; "
+                f"{'cluster' if n >= latency_cuda.CLUSTER_MIN_N else 'one-block'} kernels")
+    # The rigid kernels' routes past their shared room: the edge set
+    # outgrown mid-run (past the 64 edge slots and the 64 acceptances kept
+    # in shared memory), and a candidate list outgrown from the start.
     for name, xn, k in (("edge-set overflow", rigid_edge_window(), 100),
+                        ("edge-set overflow", rigid_edge_window(65536), 100),
                         ("list overflow", rigid_list_window(), 5)):
         n = xn.shape[-1]
         x = torch.from_numpy(xn).cuda()
+        key = latency_cuda.kernel_name("rigid", n)
+        before = dict(latency_cuda.launches)
         got = latency_cuda.analyze_window_lowlat(x, fs, mode="rigid", k=k, refine=True)
+        _launched_one(before, key, f"{name} N={n}")
         want = _lowlat_plain(x, fs, "rigid", k, 2, True)
-        worst["lowlat_rigid"] = max(worst["lowlat_rigid"], _lowlat_equals_plain(
-            got, want, "rigid", f"{name} N={n} rigid"))
+        worst[key] = max(worst[key], _lowlat_equals_plain(got, want, "rigid",
+                                                          f"{name} N={n} rigid"))
         never = pipeline.analyze_epoch(x[None], FS, n_fft=n, mode="rigid", k=k, refine=True,
                                        lowlat="never")
         _assert_same(got, never, ("count", "idx", "n_candidates"), (),
@@ -1027,7 +1055,7 @@ def phase_lowlat_vs_plain() -> dict[str, float]:
         c = int(got.count[0])
         assert got.idx[0, :c].tolist() == [p["idx"] for p in ref], name
         cases += 1
-        log(f"[7 lowlat==plain] rigid {name} N={n} k={k}: count {c}, n_cand "
+        log(f"[7 lowlat==plain] rigid {name} N={n} k={k} ({key}): count {c}, n_cand "
             f"{int(got.n_candidates[0])}; equal to the plain version, lowlat=never and the "
             f"float64 oracle")
     log(f"[7 lowlat==plain] all {cases} cases equal; launches {latency_cuda.launches}; "
@@ -1035,10 +1063,10 @@ def phase_lowlat_vs_plain() -> dict[str, float]:
     return worst
 
 
-def phase_route(oracle, signals) -> tuple[dict[str, int], float]:
+def phase_route(oracle, signals) -> tuple[dict[str, int], dict[str, float]]:
     """The single-window route through ``analyze_epoch`` on the card.
     Returns the latency kernels' launches in it and the max abs float
-    difference of its kernel calls against the plain version."""
+    difference of its kernel calls against the plain version, per kernel."""
     calls = []
     wrapper = latency_cuda.analyze_window_lowlat
 
@@ -1084,6 +1112,22 @@ def phase_route(oracle, signals) -> tuple[dict[str, int], float]:
                 assert sum(latency_cuda.launches.values()) > before, (n, fs, mode)
                 log(f"[8 route] modal_signal N={n} fs={fs} {mode}: idx "
                     f"{res.idx[0, :c].tolist()} equal to the float64 oracle and lowlat=never")
+        # Long single windows: only the cluster kernels launch.
+        for n in (latency_cuda.CLUSTER_MIN_N, latency_cuda.LOWLAT_MAX_N):
+            x = clean_batch(1, n)[0]
+            for mode in ("rigid", "flexible"):
+                key = latency_cuda.kernel_name(mode, n)
+                before = dict(latency_cuda.launches)
+                res = route(x, mode, True)
+                grew = {k: v - before[k] for k, v in latency_cuda.launches.items()
+                        if v != before[k]}
+                assert set(grew) == {key}, (n, mode, grew)
+                want = oracle.oracle_analyze(x.astype(np.float64), FS, mode)
+                c = int(res.count[0])
+                assert res.idx[0, :c].tolist() == [p["idx"] for p in want], (n, mode)
+                log(f"[8 route] two-tone N={n} {mode}: {grew[key]} launch(es) of {key}, no "
+                    f"other; idx {res.idx[0, :c].tolist()} equal to the float64 oracle and "
+                    f"lowlat=never")
         before = latency_cuda.launches["lowlat_flexible"]
         route(overflow_window(), "flexible", True)
         launches = dict(latency_cuda.launches)
@@ -1098,14 +1142,15 @@ def phase_route(oracle, signals) -> tuple[dict[str, int], float]:
     log(f"[8 route] latency kernel launches on the route: {launches}")
     assert all(v > 0 for v in launches.values()), launches
 
-    worst = 0.0
+    worst = dict.fromkeys(latency_cuda.launches, 0.0)
     for x, fs, kw, got in calls:
         mode = kw["mode"]
         want = _lowlat_plain(x, fs, mode, kw["k"], kw["max_candidates"], kw["refine"])
-        worst = max(worst, _lowlat_equals_plain(
+        key = latency_cuda.kernel_name(mode, x.shape[-1])
+        worst[key] = max(worst[key], _lowlat_equals_plain(
             got, want, mode, f"route call N={x.shape[-1]} {mode} M={kw['max_candidates']}"))
     log(f"[8 route] all {len(calls)} kernel calls of the route equal the plain version; "
-        f"max abs float diff {worst:.3g}")
+        f"max abs float diff { {k: float(f'{v:.3g}') for k, v in worst.items()} }")
     return launches, worst
 
 
@@ -1153,8 +1198,11 @@ def _kernel_device_ms(fn, name: str, runs: int = 20) -> float:
 
 
 def phase_lowlat_times(card: str) -> dict[str, tuple[float, float]]:
-    """Latency per window four ways for cfg1 and cfg2, and the flexible
-    kernel at M=64.  Returns {kernel: (kernel ms, plain ms)} (CUDA events)."""
+    """Latency per window four ways for cfg1 and cfg2, the flexible kernel
+    at M=64, the rigid one at N=4096, and both cluster kernels at N=32768
+    and 65536 beside the routed call and ``lowlat="never"``.  Returns
+    {kernel: (kernel ms, plain ms)} (CUDA events; the cluster kernels' at
+    N=65536)."""
     fs = torch.tensor(FS, device="cuda")
     out = {}
     for name, n, mode, refine in (("cfg1", 1024, "rigid", False),
@@ -1192,27 +1240,46 @@ def phase_lowlat_times(card: str) -> dict[str, tuple[float, float]]:
     log(f"[9 times] flexible kernel at M=64, N=4096 (71-candidate window, all 64 picks): "
         f"device {dev_ms:.4f} ms (profiler), call {event_ms(kernel):.4f} ms, plain "
         f"{p_ms:.4f} ms (CUDA events); {card}")
-    n = latency_cuda.LOWLAT_MAX_N
-    x = torch.from_numpy(clean_batch(1, n)[0]).cuda()
+    x = torch.from_numpy(clean_batch(1, 4096)[0]).cuda()
     kernel = lambda: latency_cuda.analyze_window_lowlat(  # noqa: E731
-        x, fs, mode="flexible", max_candidates=2, refine=True)
+        x, fs, mode="rigid", refine=True)
+    res = kernel()
     k_ms = event_ms(kernel)
-    p_ms = event_ms(lambda: _lowlat_plain(x, fs, "flexible", 4, 2, True))
-    dev_ms = _kernel_device_ms(kernel, "lowlat_flexible")
-    log(f"[9 times] flexible kernel at N={n}, budget 2 (two-tone window): device "
-        f"{dev_ms:.4f} ms (profiler), call {k_ms:.4f} ms, plain {p_ms:.4f} ms (CUDA events); "
-        f"{card}")
-    for n in (4096, latency_cuda.LOWLAT_MAX_N):
+    p_ms = event_ms(lambda: _lowlat_plain(x, fs, "rigid", 5, 2, True))
+    dev_ms = _kernel_device_ms(kernel, "lowlat_rigid_kernel")
+    log(f"[9 times] rigid kernel at N=4096 (two-tone window, count {int(res.count[0])}, n_cand "
+        f"{int(res.n_candidates[0])}): device {dev_ms:.4f} ms (profiler), call {k_ms:.4f} ms, "
+        f"plain {p_ms:.4f} ms (CUDA events); {card}")
+    # Long windows on the cluster kernels, beside the routed call and
+    # lowlat="never"; and the FFT's share, bounded by the batched front-end
+    # kernel on the same centred window (the same passes, through a workspace).
+    for n in (latency_cuda.CLUSTER_MIN_N, latency_cuda.LOWLAT_MAX_N):
         x = torch.from_numpy(clean_batch(1, n)[0]).cuda()
-        kernel = lambda: latency_cuda.analyze_window_lowlat(  # noqa: E731
-            x, fs, mode="rigid", refine=True)
-        res = kernel()
-        k_ms = event_ms(kernel)
-        p_ms = event_ms(lambda: _lowlat_plain(x, fs, "rigid", 5, 2, True))
-        dev_ms = _kernel_device_ms(kernel, "lowlat_rigid")
-        log(f"[9 times] rigid kernel at N={n} (two-tone window, count "
-            f"{int(res.count[0])}, n_cand {int(res.n_candidates[0])}): device {dev_ms:.4f} ms "
-            f"(profiler), call {k_ms:.4f} ms, plain {p_ms:.4f} ms (CUDA events); {card}")
+        for mode, k in (("flexible", 4), ("rigid", 5)):
+            name = latency_cuda.kernel_name(mode, n)
+            kernel = lambda: latency_cuda.analyze_window_lowlat(  # noqa: E731
+                x, fs, mode=mode, max_candidates=2, refine=True)
+            res = kernel()
+            k_ms = event_ms(kernel)
+            p_ms = event_ms(lambda: _lowlat_plain(x, fs, mode, k, 2, True), runs=5, warmup=1)
+            dev_ms = _kernel_device_ms(kernel, f"{name}_kernel")
+            pipeline.reset_dynamic_state()
+            walls = {label: _wall_ms(lambda: pipeline.analyze_epoch(  # noqa: B023
+                x[None], FS, mode=mode, refine=True, lowlat=lowlat), runs=20)
+                for label, lowlat in (("routed", "auto"), ("never", "never"),
+                                      ("routed2", "auto"))}
+            log(f"[9 times] {name} at N={n}, budget 2 (two-tone window, count "
+                f"{int(res.count[0])}, n_cand {int(res.n_candidates[0])}): device "
+                f"{dev_ms:.4f} ms (profiler, mean of 20), call {k_ms:.4f} ms, plain {p_ms:.4f} ms "
+                f"(CUDA-event medians of {TIMING_RUNS} and 5); host wall with synchronize, "
+                f"median of 20: routed analyze_epoch {walls['routed']:.4f} / "
+                f"{walls['routed2']:.4f} ms, lowlat=never {walls['never']:.4f} ms; {card}")
+            if n == latency_cuda.LOWLAT_MAX_N:
+                out[name] = (k_ms, p_ms)
+        xc = (x - x.mean())[None].contiguous()
+        dev_ms = _kernel_device_ms(lambda: halfspec_magnitudes_fused(xc), "halfspec_fft_kernel")
+        log(f"[9 times] halfspec_fft_kernel at B=1, N={n} (the FFT alone, one block, through "
+            f"its workspace): device {dev_ms:.4f} ms (profiler, mean of 20); {card}")
     pipeline.reset_dynamic_state()
     return out
 
@@ -1616,8 +1683,7 @@ def _counts() -> dict[str, int]:
     count both their kernels, of which the cluster kernels' apart."""
     return {"prominence_select_scan": detector_cuda.launches - detector_cuda.cluster_launches,
             "prominence_select_scan_cluster": detector_cuda.cluster_launches,
-            "lowlat_flexible": latency_cuda.launches["lowlat_flexible"],
-            "lowlat_rigid": latency_cuda.launches["lowlat_rigid"],
+            **latency_cuda.launches,
             "halfspec_fused": fft_cuda.launches,
             "prominence_scans": detector_cuda.scan_launches - detector_cuda.cluster_scan_launches,
             "prominence_scans_cluster": detector_cuda.cluster_scan_launches}
@@ -1661,7 +1727,7 @@ class _Taps:
     def check(self, tag: str) -> dict[str, float]:
         """Every tapped call against its plain twin; returns the max abs
         float difference per kernel and frees the taps."""
-        worst = {"prominence_select_scan": 0.0, "lowlat_flexible": 0.0, "lowlat_rigid": 0.0,
+        worst = {"prominence_select_scan": 0.0, **dict.fromkeys(latency_cuda.launches, 0.0),
                  "halfspec_fused": 0.0}
         for i, (mags, m, got) in enumerate(self.b1):
             err = _kernel_equals_plain(mags, m, got,
@@ -1670,7 +1736,8 @@ class _Taps:
         for i, (x, fs, kw, got) in enumerate(self.lowlat):
             mode = kw["mode"]
             want = _lowlat_plain(x, fs, mode, kw["k"], kw["max_candidates"], kw["refine"])
-            worst[f"lowlat_{mode}"] = max(worst[f"lowlat_{mode}"], _lowlat_equals_plain(
+            key = latency_cuda.kernel_name(mode, x.shape[-1])
+            worst[key] = max(worst[key], _lowlat_equals_plain(
                 got, want, mode, f"{tag} lowlat call {i} N={x.shape[-1]} {mode}"))
         for i, (x, got) in enumerate(self.b4):
             worst["halfspec_fused"] = max(worst["halfspec_fused"], _halfspec_call_check(
@@ -1775,7 +1842,7 @@ def phase_records(oracle, signals, card: str) -> tuple[dict[str, int], dict[str,
     assert launches["prominence_select_scan"] > 0, "the records path never launched B1"
     # Every bucket passes its lengths, so even the one-record bucket takes
     # the batched path, as in the JAX package.
-    assert launches["lowlat_flexible"] == launches["lowlat_rigid"] == 0, launches
+    assert not any(launches[key] for key in latency_cuda.launches), launches
     err = taps.check("14 records")
 
     sub = list(range(32)) + list(range(GATEWAY_RECORDS, GATEWAY_RECORDS + 31)) + [len(recs) - 1]
@@ -2854,7 +2921,7 @@ def phase_mesh(corpora: dict[str, np.ndarray], arrays: dict, signals,
             f"(B1 calls at {[tuple(c[0].shape) for c in taps.b1][:12]} ...)")
         assert epoch_launches["prominence_select_scan"] > 0, "no B1 launch on the mesh"
         assert epoch_launches["halfspec_fused"] > 0, "no B4 launch on the pallas mesh epoch"
-        assert epoch_launches["lowlat_flexible"] == epoch_launches["lowlat_rigid"] == 0
+        assert not any(epoch_launches[key] for key in latency_cuda.launches), epoch_launches
         # B1 on every shard: each flat pass launches once a shard.
         assert sum(1 for c in taps.b1 if c[0].shape[0] == BATCH // 4) >= 4, "a shard without B1"
         err = taps.check("23 mesh epochs")
@@ -3231,6 +3298,76 @@ def phase_threshold_order(corpora: dict[str, np.ndarray], card: str) -> int:
     return rows
 
 
+def block_order_threshold(mags: torch.Tensor, lanes: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(threshold, std) of each row of ``mags [B, H]`` with the sums of
+    ``detector_common.cuh`` ``noise_threshold`` in a block of ``lanes``
+    threads, as the single-window kernels take them: lane l adding bins l,
+    l + lanes, ... from +0.0, then the block tree."""
+    b, h = mags.shape
+    span = -(-h // lanes) * lanes
+    xp = torch.nn.functional.pad(mags, (0, span - h))
+    mean = stats.div_exact(stats._lane_tree(stats._lane_sums(
+        xp.reshape(b, span // lanes, lanes), compensated=False)), float(h))
+    d = xp - mean[:, None]
+    sq = torch.where(torch.arange(span, device=mags.device) < h, d * d, 0.0)
+    var = stats.div_exact(stats._lane_tree(stats._lane_sums(
+        sq.reshape(b, span // lanes, lanes), compensated=False)), float(h - 1))
+    sd = torch.sqrt(var)
+    return mean + 2.0 * sd, sd
+
+
+def _n_candidates(mags: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
+    """Strict interior local maxima above ``thr`` a row."""
+    mid = mags[:, 1:-1]
+    return ((mid > mags[:, :-2]) & (mid > mags[:, 2:]) & (mid > thr[:, None])).sum(dim=-1)
+
+
+#: Fresh windows of phase 27 by length.
+RIGID_THRESHOLD_WINDOWS = {4096: 1024, 65536: 64}
+
+
+def phase_rigid_threshold(card: str) -> dict[int, dict[str, int]]:
+    """Phase 27: B3's threshold order against its twin's on fresh windows
+    (noise of a random level with four tones, seed drawn at run time and
+    printed) at N=4096 and 65536.  The kernel sums the threshold in its
+    block's lanes (512 and 1024 threads), the twin (``resolution_peaks`` on
+    the one window) with ``torch.sum``.  On the twin's magnitudes of each
+    window, counts the windows whose std differs in any bit between the two
+    orders, and whose ``n_candidates`` differs between the two thresholds;
+    then the windows whose ``n_candidates`` from the kernel differs from the
+    twin's (their magnitudes come from two FFTs, so this counts both
+    causes).  Reports, and returns the counts per N."""
+    seed = int.from_bytes(os.urandom(4), "little")
+    rng = np.random.default_rng(seed)
+    fs = torch.tensor(FS, device="cuda")
+    out = {}
+    for n, b in RIGID_THRESHOLD_WINDOWS.items():
+        t = np.arange(n) / FS
+        x = rng.standard_normal((b, n)) * rng.uniform(0.1, 5.0, (b, 1))
+        for _ in range(4):
+            x += rng.uniform(0.5, 20.0, (b, 1)) * np.sin(
+                2 * np.pi * rng.uniform(1.0, FS / 2 - 1.0, (b, 1)) * t + rng.uniform(0, 6.3, (b, 1)))
+        xs = torch.from_numpy(x.astype(np.float32)).cuda()
+        counts = dict.fromkeys(("std", "n_cand_order", "n_cand_kernel"), 0)
+        for i in range(b):
+            xi = xs[i]
+            mags = halfspec_magnitudes(xi[None] - stats.div_exact(xi.sum(), float(n)),
+                                       backend="matmul")
+            thr, sd = stats.noise_threshold(mags)
+            thr_k, sd_k = block_order_threshold(mags, latency_cuda._block_threads("rigid", n))
+            twin_cand = _n_candidates(mags, thr)
+            counts["std"] += int((sd != sd_k).sum())
+            counts["n_cand_order"] += int((twin_cand != _n_candidates(mags, thr_k)).sum())
+            got = latency_cuda.analyze_window_lowlat(xi, fs, mode="rigid")
+            counts["n_cand_kernel"] += int((got.n_candidates != twin_cand).sum())
+        out[n] = counts
+        log(f"[27 rigid threshold] N={n}, {b} fresh windows (seed {seed}): std apart between "
+            f"the kernel's lane order and torch.sum in {counts['std']}, n_candidates apart "
+            f"between the two thresholds in {counts['n_cand_order']}; the kernel's "
+            f"n_candidates apart from the twin's in {counts['n_cand_kernel']}; {card}")
+    return out
+
+
 def phase_last_slice(corpora: dict[str, np.ndarray], card: str
                      ) -> tuple[dict[str, int], dict[str, float]]:
     """Phase 25 (module docstring); returns the path's launches and the max
@@ -3397,10 +3534,11 @@ def main() -> int:
     long_times = phase_long_row_times(card)
     paths["last slice"] = phase_last_slice(corpora, card)
     phase_threshold_order(corpora, card)
+    phase_rigid_threshold(card)
     log(f"[25 launches] by path: { {name: launches for name, (launches, _) in paths.items()} }")
     path_launches = {key: sum(p[0][key] for p in paths.values()) for key in _counts()}
     path_err = _max_err(*(err for _, err in paths.values()))
-    log(f"[26 elapsed] phases 1-26 in {time.perf_counter() - t0:.1f} s")
+    log(f"[27 elapsed] phases 1-27 in {time.perf_counter() - t0:.1f} s")
 
     h = N_FFT // 2
     # Per kernel, at the shapes its time was taken at: (bytes of its inputs
@@ -3410,6 +3548,9 @@ def main() -> int:
         "prominence_select_scan": detector_cuda.select_scan_work(BATCH, h, 12),
         "lowlat_flexible": latency_cuda.lowlat_work(N_FFT, 4),
         "lowlat_rigid": latency_cuda.lowlat_work(1024, 5),
+        # The cluster kernels at N=65536 (phase 9's two-tone window).
+        "lowlat_flexible_cluster": latency_cuda.lowlat_work(latency_cuda.LOWLAT_MAX_N, 4),
+        "lowlat_rigid_cluster": latency_cuda.lowlat_work(latency_cuda.LOWLAT_MAX_N, 5),
         "halfspec_fused": fft_cuda.halfspec_work(BATCH, N_FFT),
         "prominence_scans": detector_cuda.scans_work(BATCH, h, 32),
         # The cluster kernels at phase 5's N=131072 rows (B=16, H=65536).
@@ -3427,14 +3568,14 @@ def main() -> int:
         "plain_ms": p_ms,
         "library_ms": None,
     }]
-    for name in ("lowlat_flexible", "lowlat_rigid"):
+    for name in latency_cuda.launches:
         rows.append({
             "name": name,
             "route": "cuda",
             "source": LOWLAT_SOURCE,
-            "replaces": LOWLAT_REPLACES[name],
+            "replaces": LOWLAT_REPLACES[name.removesuffix("_cluster")],
             "launches": lowlat_launches[name] + path_launches[name],
-            "max_abs_err": max(lowlat_err[name], route_err, path_err[name]),
+            "max_abs_err": max(lowlat_err[name], route_err[name], path_err[name]),
             "ms": lowlat_times[name][0],
             "plain_ms": lowlat_times[name][1],
             "library_ms": None,

@@ -8,8 +8,9 @@ imports JAX):
     python -m pytest --noconftest tests/test_torch_gpu_*.py
 
 Every test is marked ``gpu`` and skips without a CUDA device.  Each kernel
-- B1 (select+scan), B2/B3 (single-window flexible/rigid), B4 (fused front
-end), B5 (pre-selected scans) - is called on a CUDA tensor and held against
+- B1 (select+scan), B2/B3 (single-window flexible/rigid, with their cluster
+kernels for N = 32768 and 65536), B4 (fused front end), B5 (pre-selected
+scans) - is called on a CUDA tensor and held against
 the plain twin its wrapper runs on a CPU tensor; each entry point runs on
 the card and on the CPU, with decisions equal to each other and to the
 float64 oracle.  The field ops and the modal analysis (FDD, whose detector
@@ -135,6 +136,27 @@ def test_scans_kernel_matches_plain():
                 np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
 
 
+def _latency_call_matches(x, xn, fs, mode, budget, oracle, case):
+    """One single-window kernel call against the plain twin and, where its
+    decisions are exact, the float64 oracle."""
+    n = x.shape[-1]
+    got = tlat.analyze_window_lowlat(x, fs, mode=mode, max_candidates=budget, refine=True)
+    want = tlat._analyze_window_lowlat_plain(x, fs, n_fft=n, mode=mode, k=got.k,
+                                             budget=min(budget, n // 2), refine=True)
+    for f in ("count", "idx", "n_candidates", "n_required"):
+        np.testing.assert_array_equal(getattr(got, f).cpu().numpy(),
+                                      getattr(want, f).cpu().numpy(), err_msg=f"{case} {f}")
+    for f, atol in (("freq", 1e-4), ("mag", 1e-4), ("damping", 1e-2),
+                    ("q_factor", 1e-2), ("refined_freq", 1e-3)):
+        np.testing.assert_allclose(getattr(got, f).cpu().numpy(),
+                                   getattr(want, f).cpu().numpy(), atol=atol,
+                                   rtol=1e-5, err_msg=f"{case} {f}")
+    if mode == "rigid" or int(got.n_required[0]) <= budget:
+        ref = oracle.oracle_analyze(xn.astype(np.float64), 500.0, mode)
+        c = int(got.count[0])
+        assert got.idx[0, :c].tolist() == [p["idx"] for p in ref], case
+
+
 @pytest.mark.gpu
 def test_latency_kernels_match_plain_and_the_oracle():
     _need_card()
@@ -144,22 +166,32 @@ def test_latency_kernels_match_plain_and_the_oracle():
         xn = _window(4096, 500.0, seed=5, kind=kind)
         x = torch.from_numpy(xn).cuda()
         for mode, budget in (("rigid", 2), ("flexible", 2), ("flexible", 64)):
-            got = tlat.analyze_window_lowlat(x, fs, mode=mode, max_candidates=budget,
-                                             refine=True)
-            want = tlat._analyze_window_lowlat_plain(x, fs, n_fft=4096, mode=mode, k=got.k,
-                                                     budget=budget, refine=True)
-            for f in ("count", "idx", "n_candidates", "n_required"):
-                np.testing.assert_array_equal(getattr(got, f).cpu().numpy(),
-                                              getattr(want, f).cpu().numpy(), err_msg=f)
-            for f, atol in (("freq", 1e-4), ("mag", 1e-4), ("damping", 1e-2),
-                            ("q_factor", 1e-2), ("refined_freq", 1e-3)):
-                np.testing.assert_allclose(getattr(got, f).cpu().numpy(),
-                                           getattr(want, f).cpu().numpy(), atol=atol,
-                                           rtol=1e-5, err_msg=f)
-            if mode == "rigid" or int(got.n_required[0]) <= budget:
-                ref = oracle.oracle_analyze(xn.astype(np.float64), 500.0, mode)
-                c = int(got.count[0])
-                assert got.idx[0, :c].tolist() == [p["idx"] for p in ref], (kind, mode)
+            _latency_call_matches(x, xn, fs, mode, budget, oracle, (kind, mode, budget))
+
+
+@pytest.mark.gpu
+def test_latency_cluster_kernels_match_plain_and_the_oracle():
+    """Windows of N = 32768 and 65536: one launch each, of the cluster
+    kernel of its mode, with no device memory past the outputs (no
+    workspace), against the plain twin and the float64 oracle."""
+    _need_card()
+    oracle = _load("oracle")
+    fs = torch.tensor(500.0, device="cuda")
+    for n in (tlat.CLUSTER_MIN_N, tlat.LOWLAT_MAX_N):
+        for kind in ("modal", "noise", "impulse", "flat"):
+            xn = _window(n, 500.0, seed=5, kind=kind)
+            x = torch.from_numpy(xn).cuda()
+            for mode, budget in (("rigid", 2), ("flexible", 2), ("flexible", 64)):
+                before = dict(tlat.launches)
+                _latency_call_matches(x, xn, fs, mode, budget, oracle, (n, kind, mode, budget))
+                grew = {k: v - before[k] for k, v in tlat.launches.items() if v != before[k]}
+                assert grew == {f"lowlat_{mode}_cluster": 1}, (n, kind, mode, grew)
+                # The kernel's call alone, the twiddle table cached.
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                tlat.analyze_window_lowlat(x, fs, mode=mode, max_candidates=budget)
+                assert torch.cuda.max_memory_allocated() - held < 64 * 1024, (n, mode)
 
 
 @pytest.mark.gpu

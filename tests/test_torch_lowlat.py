@@ -6,8 +6,11 @@ mode.  Decisions (``count``, ``idx``, ``n_candidates``, ``n_required``) are
 equal; ``freq``/``mag`` to one 4-dp rounding step (float32 can land on the
 other side of a tie), ``damping``/``q`` to one 2-dp step, ``refined_freq``
 within 1e-3 Hz, as the JAX package's own test holds its kernel to its
-batched path.  The CUDA kernels need the card: ``test_torch_gpu_card.py``
-and ``chip_smoke.py`` compare them with the plain version there.
+batched path.  Windows of N = 32768 and 65536, which the cluster kernels
+take on the card, are held the same way against the JAX package's batched
+path (``analyze_epoch(..., lowlat="never")``).  The CUDA kernels need the
+card: ``test_torch_gpu_card.py`` and ``chip_smoke.py`` compare them with
+the plain version there.
 """
 
 import jax.numpy as jnp
@@ -15,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import apda_fft_tpu as japda
 from apda_fft_tpu.ops import latency_pallas as jlat
 from apda_fft_tpu_torch.ops import fft_cuda
 from apda_fft_tpu_torch.ops import latency_cuda as tlat
@@ -85,6 +89,25 @@ def test_decisions_match_float64_oracle(mode, n, fs, seed):
     assert int(res.n_candidates[0]) <= 16
     c = int(res.count[0])
     assert res.idx[0, :c].tolist() == [p["idx"] for p in ref]
+
+
+@pytest.mark.parametrize("kind", ["modal", "noise", "damped"])
+@pytest.mark.parametrize("mode", ["rigid", "flexible"])
+@pytest.mark.parametrize("n", [32768, 65536])
+def test_long_windows_match_jax_batched_path(n, mode, kind):
+    fs = 500.0
+    if kind == "damped":
+        x = modal_signal(n, fs, seed=4).astype(np.float32)
+    else:
+        x = _window(n, fs, seed=11, kind=kind)
+    got = tlat.analyze_window_lowlat(torch.from_numpy(x), fs, mode=mode, refine=True,
+                                     max_candidates=16)
+    want = japda.analyze_epoch(jnp.asarray(x[None]), fs, mode=mode, refine=True,
+                               max_candidates=16, lowlat="never", dtype=jnp.float32)
+    _assert_same(got, want)
+    assert got.idx.shape == (1, 5 if mode == "rigid" else 4)
+    if kind == "noise":
+        assert int(got.n_candidates[0]) > 500  # past the route's budgets
 
 
 def test_flat_window_has_no_candidates():

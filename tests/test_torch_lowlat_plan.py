@@ -3,11 +3,19 @@
 The kernels run only on the card; two parts of their plan are checked here:
 
 * ``layout()``, mirrored from the source's constants: for every window
-  length the route takes (one layout for both modes), the shared-memory
-  part fits the 227 KB a block may use, the magnitudes are always in it,
-  and the FFT buffers go to the global workspace only from N = 32768 on,
-  beside a candidate list that holds every candidate (``H/4 + 2`` keys, at
-  most 4096);
+  length the route takes (one layout for both modes) the shared memory
+  fits the 227 KB a block may use beside the static scratch, the
+  magnitudes and a candidate list that holds every candidate (``H/4 + 2``
+  keys, at most 4096) are always in it, and no global workspace is needed;
+  up to N = 16384 one block holds the FFT buffers too, from N = 32768 a
+  thread-block cluster of 8 CTAs (the cluster kernels) spreads them over
+  its CTAs, point i of a buffer in CTA i % 8, and CTA 0 keeps the
+  magnitudes, summaries and list over its own shares;
+* the cluster kernels' distributed FFT, modelled CTA by CTA on those
+  shares: every butterfly, pack point and split pair is taken once at 8 x
+  1024 (and 8 x 512) threads, every pass reads only its CTA's share and
+  writes outside it only where the kernel places a cluster barrier, and the
+  magnitudes are the one-block plan's bits;
 * the flexible kernel's finalize: its picks are scanned in rounds of 64,
   then thread 0 walks them in order and stops at the k-th acceptance.  A
   model of that walk, on picks from ``prominence_select`` and scans from
@@ -16,6 +24,7 @@ The kernels run only on the card; two parts of their plan are checked here:
   past one round.
 """
 
+import inspect
 import os
 import re
 
@@ -23,9 +32,10 @@ import numpy as np
 import pytest
 import torch
 
-from apda_fft_tpu_torch.ops import latency_cuda
+from apda_fft_tpu_torch.ops import fft_cuda, latency_cuda
 from apda_fft_tpu_torch.ops import peaks_prominence as tprom
 from apda_fft_tpu_torch.utils import kernels
+from tests import test_torch_fft_plan as plan
 
 BLOCK_SMEM = 227 * 1024  # bytes of shared memory a block may use on Hopper
 
@@ -40,36 +50,38 @@ def _constant(source: str, name: str) -> int:
 SMEM_CAP = _constant("lowlat_window.cu", "kSmemCap")
 SLOTS = _constant("lowlat_window.cu", "kSlots")
 MAX_LIST = _constant("walk_common.cuh", "kMaxList")
+CLUSTER = _constant("cluster_common.cuh", "kClusterSize")
+
+
+def padded(l: int) -> int:
+    return l + (l >> 4)
 
 
 def layout(n: int) -> dict:
-    """``layout()`` of lowlat_window.cu, the same for both kernels."""
+    """``layout()`` of lowlat_window.cu, the same for both kernels: the
+    dynamic shared memory of the block (or of each CTA), the list's room and
+    whether the window runs on a cluster; with the parts of the shared memory
+    in bytes."""
     h = n // 2
-    out = {"smem": 0, "ws": 0, "mags_smem": False, "fft_smem": False, "list_cap": 0}
-    if 4 * h <= SMEM_CAP:
-        out["smem"] = 4 * h
-        out["mags_smem"] = True
-    else:
-        out["ws"] = h
-    out["smem"] += 8 * ((h + 31) // 32)
     full = min(h // 4 + 2, MAX_LIST) & ~1
-    padded = h + (h >> 4)
-    if out["smem"] + 8 * full + 16 * padded <= SMEM_CAP:
-        out["smem"] += 16 * padded
-        out["fft_smem"] = True
-    else:
-        out["ws"] += 4 * padded
-    room = max(SMEM_CAP - out["smem"], 0) // 8
-    out["list_cap"] = min(full, room) & ~1
-    out["smem"] += 8 * out["list_cap"]
-    return out
+    lists = 8 * ((h + 31) // 32) + 8 * full  # chunk summaries and candidate list
+    fft = 16 * padded(h)  # both exchange buffers
+    if 4 * h + lists + fft <= SMEM_CAP:
+        return {"smem": 4 * h + lists + fft, "list_cap": full, "cluster": False,
+                "mags": 4 * h, "lists": lists, "shares": fft}
+    shares = 16 * padded(h // CLUSTER)  # this CTA's share of both buffers
+    return {"smem": 4 * h + max(shares, lists), "list_cap": full, "cluster": True,
+            "mags": 4 * h, "lists": lists, "shares": shares}
 
 
 LENGTHS = [1 << p for p in range(6, latency_cuda.LOWLAT_MAX_N.bit_length())]
+CLUSTER_LENGTHS = [n for n in LENGTHS if n >= latency_cuda.CLUSTER_MIN_N]
 
 
 def test_lengths_cover_the_route():
     assert LENGTHS[0] == 64 and LENGTHS[-1] == latency_cuda.LOWLAT_MAX_N == 65536
+    assert CLUSTER_LENGTHS == [32768, 65536]
+    assert CLUSTER == latency_cuda.CLUSTER_SIZE == 8
 
 
 def _static_scratch_bytes(kernel: str) -> int:
@@ -78,7 +90,7 @@ def _static_scratch_bytes(kernel: str) -> int:
     scalars, read from the source."""
     with open(os.path.join(kernels.CSRC_DIR, "lowlat_window.cu")) as f:
         text = f.read()
-    body = text[text.index(f"{kernel}("):]
+    body = text[text.index(f"\n{kernel}("):]
     body = body[:body.index("const int tid")]
     sizes = {"kSlots": SLOTS, "kAccepted": _constant("lowlat_window.cu", "kAccepted")}
     total = 32 * (4 + 4 + 8 + 8)
@@ -93,18 +105,185 @@ def _static_scratch_bytes(kernel: str) -> int:
 @pytest.mark.parametrize("n", LENGTHS)
 def test_shared_part_fits_and_holds_the_magnitudes(n, rigid):
     lay = layout(n)
-    assert lay["mags_smem"]
     # The static scratch (reductions, pick slots) stays inside the 2 KB kept.
     assert SMEM_CAP == BLOCK_SMEM - 2048
-    kernel = "lowlat_rigid_kernel" if rigid else "lowlat_flexible_kernel"
+    mode = "rigid" if rigid else "flexible"
+    kernel = f"lowlat_{mode}{'_cluster' if lay['cluster'] else ''}_kernel"
+    assert latency_cuda.kernel_name(mode, n) + "_kernel" == kernel
     assert _static_scratch_bytes(kernel) <= 2048
     assert lay["smem"] + 2048 <= BLOCK_SMEM
     h = n // 2
     assert lay["list_cap"] == min(h // 4 + 2, MAX_LIST) & ~1  # every candidate fits
-    assert lay["fft_smem"] == (n <= 16384)
-    assert lay["ws"] == (0 if n <= 16384 else 4 * (h + (h >> 4)))
-    # The rigid kernel keeps its unwiped magnitudes in the free FFT buffer.
-    assert 2 * (h + (h >> 4)) >= h
+    # One block holds the FFT buffers up to N = 16384; no length of the
+    # route needs a global workspace: from 32768 the buffers are spread
+    # over a cluster's CTAs.
+    assert lay["cluster"] == (n >= latency_cuda.CLUSTER_MIN_N) == (n > 16384)
+    assert lay["smem"] == lay["mags"] + (max(lay["shares"], lay["lists"]) if lay["cluster"]
+                                         else lay["lists"] + lay["shares"])
+    # The rigid kernel keeps its unwiped magnitudes in the free FFT buffer:
+    # one block's, or the shares of CTAs 1-4 (h/4 floats each).
+    if lay["cluster"]:
+        assert lay["shares"] // 2 >= 4 * (h // 4) and 1 + (h - 1) // (h // 4) < CLUSTER
+    else:
+        assert 2 * (h + (h >> 4)) >= h
+
+
+def test_one_kernel_per_route_and_no_workspace():
+    """Each window length has one kernel per mode (the cluster kernels from
+    CLUSTER_MIN_N), and the launch takes no workspace: the wrapper
+    allocates only the outputs."""
+    with open(os.path.join(kernels.CSRC_DIR, "lowlat_window.cu")) as f:
+        text = f.read()
+    for mode in ("flexible", "rigid"):
+        assert f"lowlat_{mode}_kernel(" in text and f"lowlat_{mode}_cluster_kernel(" in text
+    launch = text[text.index("int apda_lowlat_window("):]
+    assert "ws" not in launch[:launch.index(")")] and "workspace_floats" not in text
+    assert "ws_floats" not in inspect.getsource(latency_cuda)
+
+
+@pytest.mark.parametrize("rigid", [False, True])
+@pytest.mark.parametrize("n", CLUSTER_LENGTHS)
+def test_cluster_layout(n, rigid):
+    """Every CTA of a cluster within 227 KB with its static scratch; CTA 0
+    holding the magnitudes, summaries, the whole list and its shares (the
+    summaries and list over its shares once the split is done); the shares
+    covering both padded buffers exactly once; the cluster a function of N."""
+    lay = layout(n)
+    h = n // 2
+    mode = "rigid" if rigid else "flexible"
+    assert lay["cluster"] and latency_cuda.kernel_name(mode, n) == f"lowlat_{mode}_cluster"
+    assert lay["smem"] + _static_scratch_bytes(f"lowlat_{mode}_cluster_kernel") <= BLOCK_SMEM
+    # CTA 0: magnitudes first, then its shares, later overlaid by the
+    # summaries and the full list.
+    assert lay["mags"] == 4 * h and lay["list_cap"] == MAX_LIST
+    assert lay["mags"] + lay["shares"] <= lay["smem"] and lay["mags"] + lay["lists"] <= lay["smem"]
+    # Point i of a buffer: CTA i % 8, slot pad(i // 8) of a share of
+    # padded(h / 8) points; each buffer's h points land on distinct places.
+    i = np.arange(h)
+    places = (i % CLUSTER) * padded(h // CLUSTER) + (i // CLUSTER) + (i // CLUSTER >> 4)
+    assert len(set(places.tolist())) == h
+    assert ((i // CLUSTER) + (i // CLUSTER >> 4)).max() < padded(h // CLUSTER)
+    assert lay["shares"] == 2 * 8 * padded(h // CLUSTER)  # both buffers, float2
+    assert CLUSTER * lay["shares"] >= 2 * 8 * padded(h)
+
+
+def _passes(l: int) -> list[tuple[int, int]]:
+    """(radix, ns) of each Stockham pass of ``fft_passes`` over l points."""
+    rem = (l.bit_length() - 1) % 3
+    out, ns = ([(1 << rem, 1)], 1 << rem) if rem else ([], 1)
+    while ns < l:
+        out.append((8, ns))
+        ns *= 8
+    return out
+
+
+def _loop(first: int, stride: int, end: int) -> list[int]:
+    return list(range(first, end, stride)) if first < end else []
+
+
+@pytest.mark.parametrize("threads", [1024, 512])
+@pytest.mark.parametrize("n", CLUSTER_LENGTHS)
+def test_cluster_work_is_taken_once(n, threads):
+    """The cluster kernels' loops at 8 CTAs of ``threads``: CTA r, thread t
+    takes butterflies r + 8t, + 8*threads, ...; pack points and split pairs
+    from r*threads + t in strides of 8*threads; each once."""
+    l = n // 2
+    for radix, ns in _passes(l):
+        nb = l // radix
+        taken = [b for r in range(CLUSTER) for t in range(threads)
+                 for b in _loop(r + CLUSTER * t, CLUSTER * threads, nb)]
+        assert sorted(taken) == list(range(nb)), (radix, ns)
+    stride = CLUSTER * threads
+    firsts = [r * threads + t for r in range(CLUSTER) for t in range(threads)]
+    # The pack: float4 q0, q0 + stride, ... four a round (two points each).
+    packed = [q0 + u * stride for f in firsts for q0 in _loop(f, 4 * stride, l // 2)
+              for u in range(4) if q0 + u * stride < l // 2]
+    assert sorted(packed) == list(range(l // 2))
+    split = [k for f in firsts for k in _loop(f, stride, l // 2 + 1)]
+    assert sorted(split) == list(range(l // 2 + 1))
+
+
+def _cluster_plan(x: np.ndarray, table: np.ndarray) -> tuple[np.ndarray, list[str]]:
+    """The cluster kernels' FFT on one window, CTA by CTA on the shares of
+    the two buffers (``[8, padded(l/8)]`` complex64 each): the pack through
+    the spread map, each pass's butterflies of CTA r read from its own share
+    (asserted) and written through the map, then the split.  Returns the
+    magnitudes and the barrier each pass needs (``cluster`` where a pass's
+    writes or the next pass's leave a CTA, or the split follows)."""
+    n = x.shape[0]
+    l = n // 2
+    t = (table[:, 0] + 1j * table[:, 1]).astype(np.complex64)
+    share = padded(l // CLUSTER)
+
+    def place(i):
+        return i % CLUSTER, (i // CLUSTER) + ((i // CLUSTER) >> 4)
+
+    mean = np.float32(np.float32(x.astype(np.float32).sum(dtype=np.float32)) / np.float32(n))
+    xc = (x - mean).astype(np.float32)
+    a = np.zeros((CLUSTER, share), np.complex64)
+    c = np.zeros_like(a)
+    i = np.arange(l)
+    a[place(i)] = (xc[0::2] + 1j * xc[1::2]).astype(np.complex64)
+    barriers, remote = [], []
+    ns = 1
+    for radix, ns in _passes(l):
+        nb = l // radix
+        step = 2 * l // (ns * radix)
+        written = np.zeros((CLUSTER, share), int)
+        out_of_cta = False
+        for r in range(CLUSTER):
+            b = np.arange(r, nb, CLUSTER)
+            k = b & (ns - 1)
+            idx = [b + q * nb for q in range(radix)]
+            assert all((j % CLUSTER == r).all() for j in idx)  # reads: own share
+            v = [a[r, place(j)[1]] for j in idx]
+            if ns > 1:
+                v = [v[0]] + [v[q] * plan._twiddle(t, q * k * step, l) for q in range(1, radix)]
+            v = plan._dft([vi.astype(np.complex64) for vi in v])
+            d = (b - k) * radix + k
+            for q in range(radix):
+                dst = place(d + q * ns)
+                out_of_cta |= bool((dst[0] != r).any())
+                c[dst] = v[q]
+                np.add.at(written, dst, 1)
+        assert written[place(i)].min() == 1 and written.sum() == l  # each point once
+        remote.append(out_of_cta)
+        assert out_of_cta == (ns < 8)  # the kernel's Own / Spread choice
+        a, c = c, a
+    for p, rem in enumerate(remote):
+        barriers.append("cluster" if rem or p + 1 == len(remote) or
+                        (p + 1 < len(remote) and remote[p + 1]) else "block")
+    z = a[place(i)]
+    k = np.arange(1, l // 2 + 1)
+    za, zb = z[k], z[l - k]
+    half = np.float32(0.5)
+    er, ei = half * (za.real + zb.real), half * (za.imag - zb.imag)
+    orr, oi = half * (za.real - zb.real), half * (za.imag + zb.imag)
+    w = t[k]
+    pr = w.real * orr - w.imag * oi
+    pi = w.real * oi + w.imag * orr
+    out = np.zeros(l, np.float32)
+    out[l - k] = np.sqrt((er - pi) ** 2 + (ei + pr) ** 2)
+    out[k] = np.sqrt((er + pi) ** 2 + (ei - pr) ** 2)
+    return out, barriers
+
+
+@pytest.mark.parametrize("n", CLUSTER_LENGTHS)
+def test_cluster_fft_is_the_one_block_plan(n):
+    """The distributed FFT gives the one-block plan's bits (the same
+    butterflies, twiddles and operations, only their places differ), and
+    its barriers are the kernel's: cluster-wide after the first pass or two
+    and the last, block-wide between."""
+    rng = np.random.default_rng(n)
+    x = (np.sin(2 * np.pi * 12.5 * np.arange(n) / 500.0) + 0.3 * rng.standard_normal(n)
+         + 2.0).astype(np.float32)
+    table = fft_cuda._twiddle_table(n).numpy()
+    got, barriers = _cluster_plan(x, table)
+    mean = np.float32(np.float32(x.sum(dtype=np.float32)) / np.float32(n))
+    want = plan.kernel_plan(x[None], table, mean=np.full((1, 1), mean, np.float32))[0]
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    first_local = 1 if n // 2 == 32768 else 2  # radix-8 from ns = 1, or radix 4 then ns = 4
+    assert barriers == ["cluster"] * first_local + ["block"] * (4 - first_local) + ["cluster"]
 
 
 def kernel_finalize(cid, cmag, prom, bins, fs, n_fft, k, std, n_cand, m):
