@@ -44,6 +44,7 @@ from apda_fft_tpu_torch.ops.peaks_resolution import (
     rigid_half_corrections,
 )
 from apda_fft_tpu_torch.ops.stats import div_exact
+from apda_fft_tpu_torch.utils.profiling import span
 
 MODES = ("flexible", "rigid", "adaptive")
 
@@ -385,7 +386,8 @@ def _detect_from_mags(
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
 
     if refine:
-        refined = refine_subbin(mags, det.idx, div_exact(fs_flat, float(n_fft)))
+        with span("apda.refine"):
+            refined = refine_subbin(mags, det.idx, div_exact(fs_flat, float(n_fft)))
     else:
         refined = torch.zeros_like(det.freq)
     return EpochResult(
@@ -446,11 +448,13 @@ def _analyze_epoch_impl(
             torch.cat(xs)[:b].reshape(lead + xs[0].shape[1:]) for xs in zip(*parts)
         ))
 
-    mags = _epoch_spectra(flat, len_flat, n_fft=n_fft, backend=backend, center=center,
-                          taper=taper, precision=precision)
-    res = _detect_from_mags(mags, fs_flat, half_corr=corr_flat, **{
-        key: kw[key] for key in ("n_fft", "mode", "k", "max_candidates", "refine")
-    })
+    with span("apda.frontend"):
+        mags = _epoch_spectra(flat, len_flat, n_fft=n_fft, backend=backend, center=center,
+                              taper=taper, precision=precision)
+    with span("apda.detect"):
+        res = _detect_from_mags(mags, fs_flat, half_corr=corr_flat, **{
+            key: kw[key] for key in ("n_fft", "mode", "k", "max_candidates", "refine")
+        })
     return EpochResult(*(x.reshape(lead + x.shape[1:]) for x in res))
 
 
@@ -626,84 +630,90 @@ def analyze_epoch(
     Returns:
       :class:`EpochResult` with batch-shaped tensors on the epoch's device.
     """
-    samples = _placed(samples, device, dtype)
-    dev = samples.device
-    if samples.dim() < 2:
-        samples = samples[None, :]
-    if n_fft is None:
-        n_fft = fft_ops.next_pow2(samples.shape[-1])
-    if k is None:
-        k = default_k(mode)
-    lead = samples.shape[:-1]
-    fs_orig = fs  # pre-cast rate: the float64 value the rigid wipe rounding needs
-    fs = _fs_tensor(fs, dtype, dev)
-    if lengths is not None:
-        if not isinstance(lengths, torch.Tensor):
-            lengths = _from_host(np.asarray(lengths), dev)
-        lengths = lengths.to(device=dev, dtype=torch.int32).broadcast_to(lead)
+    with span("apda.epoch"):
+        fs_orig = fs  # pre-cast rate: the float64 value the rigid wipe rounding needs
+        with span("apda.place"):
+            samples = _placed(samples, device, dtype)
+            dev = samples.device
+            if samples.dim() < 2:
+                samples = samples[None, :]
+            lead = samples.shape[:-1]
+            fs = _fs_tensor(fs, dtype, dev)
+            if lengths is not None:
+                if not isinstance(lengths, torch.Tensor):
+                    lengths = _from_host(np.asarray(lengths), dev)
+                lengths = lengths.to(device=dev, dtype=torch.int32).broadcast_to(lead)
+        if n_fft is None:
+            n_fft = fft_ops.next_pow2(samples.shape[-1])
+        if k is None:
+            k = default_k(mode)
 
-    if lowlat not in ("auto", "never"):
-        raise ValueError(f"unknown lowlat {lowlat!r}; expected 'auto' or 'never'")
-    empty = any(d == 0 for d in lead)
-    dynamic, max_candidates = _check_options(
-        n_fft=n_fft, mode=mode, max_candidates=max_candidates, center=center,
-        selection=selection, taper=taper, backend=backend, precision=precision, empty=empty,
-    )
-
-    # Non-dyadic sampling rates: the rigid wipe rounding at exact-half
-    # boundaries follows the float64 reference via a host-computed table
-    # (None for the dyadic rates).
-    half_corr = None
-    if mode in ("rigid", "adaptive") and not empty:
-        table = _rigid_corr_batch(_host_rates(fs_orig), lead, n_fft)
-        if table is not None:
-            half_corr = _from_host(table, dev)
-
-    # One full window on a CUDA device: the single-window kernels, inside
-    # the envelope the JAX package routes.
-    if (
-        lowlat == "auto"
-        and mode in ("flexible", "rigid")
-        and half_corr is None  # non-dyadic rigid boundaries need the table
-        and precision == "highest"
-        and backend == "matmul"
-        and center == "auto"
-        and selection == "auto"
-        and taper == "none"
-        and lengths is None
-        and dtype == torch.float32
-        and samples.shape[-1] == n_fft
-        and n_fft >= 64
-        and all(d == 1 for d in lead)
-        and _lowlat_device(samples)
-    ):
-        res = _analyze_lowlat(samples, fs, n_fft=n_fft, mode=mode, k=k, refine=refine,
-                              dynamic=dynamic, max_candidates=max_candidates)
-        if res is not None:
-            return res
-
-    kwargs = dict(n_fft=n_fft, k=k, backend=backend, refine=refine, center=center,
-                  batch_chunk=batch_chunk, taper=taper, precision=precision)
-
-    def run(run_mode: str, mc) -> EpochResult:
-        return _analyze_epoch_impl(samples, fs, lengths, half_corr, mode=run_mode,
-                                   max_candidates=mc, **kwargs)
-
-    def prominence_pass() -> EpochResult:
-        # Adaptive mode's prominence pass is a flexible epoch of its own, so
-        # one full window takes the single-window route here too.
-        return analyze_epoch(
-            samples, fs, n_fft=n_fft, mode="flexible", k=k, backend=backend,
-            max_candidates=max_candidates, refine=refine, lengths=lengths,
-            dtype=dtype, center=center, batch_chunk=batch_chunk, lowlat=lowlat,
-            taper=taper, precision=precision,
+        if lowlat not in ("auto", "never"):
+            raise ValueError(f"unknown lowlat {lowlat!r}; expected 'auto' or 'never'")
+        empty = any(d == 0 for d in lead)
+        dynamic, max_candidates = _check_options(
+            n_fft=n_fft, mode=mode, max_candidates=max_candidates, center=center,
+            selection=selection, taper=taper, backend=backend, precision=precision, empty=empty,
         )
 
-    n_windows = 1
-    for d in lead:
-        n_windows *= d
-    return _run_modes(run, mode=mode, dynamic=dynamic, max_candidates=max_candidates,
-                      n_fft=n_fft, n_windows=n_windows, prominence_pass=prominence_pass)
+        # Non-dyadic sampling rates: the rigid wipe rounding at exact-half
+        # boundaries follows the float64 reference via a host-computed table
+        # (None for the dyadic rates).
+        half_corr = None
+        if mode in ("rigid", "adaptive") and not empty:
+            table = _rigid_corr_batch(_host_rates(fs_orig), lead, n_fft)
+            if table is not None:
+                with span("apda.place"):
+                    half_corr = _from_host(table, dev)
+
+        # One full window on a CUDA device: the single-window kernels, inside
+        # the envelope the JAX package routes.
+        if (
+            lowlat == "auto"
+            and mode in ("flexible", "rigid")
+            and half_corr is None  # non-dyadic rigid boundaries need the table
+            and precision == "highest"
+            and backend == "matmul"
+            and center == "auto"
+            and selection == "auto"
+            and taper == "none"
+            and lengths is None
+            and dtype == torch.float32
+            and samples.shape[-1] == n_fft
+            and n_fft >= 64
+            and all(d == 1 for d in lead)
+            and _lowlat_device(samples)
+        ):
+            with span("apda.route"):
+                res = _analyze_lowlat(samples, fs, n_fft=n_fft, mode=mode, k=k, refine=refine,
+                                      dynamic=dynamic, max_candidates=max_candidates)
+            if res is not None:
+                return res
+
+        kwargs = dict(n_fft=n_fft, k=k, backend=backend, refine=refine, center=center,
+                      batch_chunk=batch_chunk, taper=taper, precision=precision)
+
+        def run(run_mode: str, mc) -> EpochResult:
+            with span("apda.pass"):
+                return _analyze_epoch_impl(samples, fs, lengths, half_corr, mode=run_mode,
+                                           max_candidates=mc, **kwargs)
+
+        def prominence_pass() -> EpochResult:
+            # Adaptive mode's prominence pass is a flexible epoch of its own, so
+            # one full window takes the single-window route here too.
+            return analyze_epoch(
+                samples, fs, n_fft=n_fft, mode="flexible", k=k, backend=backend,
+                max_candidates=max_candidates, refine=refine, lengths=lengths,
+                dtype=dtype, center=center, batch_chunk=batch_chunk, lowlat=lowlat,
+                taper=taper, precision=precision,
+            )
+
+        n_windows = 1
+        for d in lead:
+            n_windows *= d
+        with span("apda.batched"):
+            return _run_modes(run, mode=mode, dynamic=dynamic, max_candidates=max_candidates,
+                              n_fft=n_fft, n_windows=n_windows, prominence_pass=prominence_pass)
 
 
 def _check_options(*, n_fft: int, mode: str, max_candidates, center: str, selection: str,
@@ -814,10 +824,11 @@ def _analyze_lowlat(samples, fs, *, n_fft: int, mode: str, k: int, refine: bool,
     fs_scalar = fs.broadcast_to(lead).reshape(())
 
     def run(budget: int) -> EpochResult:
-        return latency_cuda.analyze_window_lowlat(
-            flat, fs_scalar, n_fft=n_fft, mode=mode, k=k, max_candidates=budget,
-            refine=refine,
-        )
+        with span("apda.route.pass"):
+            return latency_cuda.analyze_window_lowlat(
+                flat, fs_scalar, n_fft=n_fft, mode=mode, k=k, max_candidates=budget,
+                refine=refine,
+            )
 
     cap = LOWLAT_MAX_BUDGET
     key = (n_fft, mode)
@@ -831,7 +842,8 @@ def _analyze_lowlat(samples, fs, *, n_fft: int, mode: str, k: int, refine: bool,
             passes += 1
             res = run(budget)
             # One readback per pass: both are [1], so this is their max.
-            n_req, n_max = torch.cat([res.n_required, res.n_candidates]).tolist()
+            with span("apda.route.readback"):
+                n_req, n_max = torch.cat([res.n_required, res.n_candidates]).tolist()
             if n_req <= budget:
                 break
             if n_req > cap:
@@ -876,10 +888,11 @@ def _run_dynamic(run_pass, *, n_fft: int, mode: str, n_windows: int) -> EpochRes
         res = run_pass(mc)
         nr = res.n_required.reshape(-1)
         grid = torch.tensor(_TIER_GRID, dtype=nr.dtype, device=nr.device)
-        scalars = torch.cat([
-            torch.stack([nr.max(), res.n_candidates.max()]).long(),
-            (nr[:, None] > grid).sum(dim=0),
-        ]).tolist()
+        with span("apda.readback"):
+            scalars = torch.cat([
+                torch.stack([nr.max(), res.n_candidates.max()]).long(),
+                (nr[:, None] > grid).sum(dim=0),
+            ]).tolist()
         n_req, n_max = scalars[0], scalars[1]
         grid_counts = scalars[2:]
         if n_req <= budget or budget >= h:

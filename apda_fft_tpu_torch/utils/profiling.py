@@ -1,4 +1,4 @@
-"""Profiling helpers: per-epoch metrics, device traces and work counts.
+"""Profiling helpers: per-epoch metrics, device traces, spans and work counts.
 
 Counterpart of ``apda_fft_tpu/utils/profiling.py``.  :class:`EpochMetrics`
 keeps the reference's self-profile of every FFT run (process and wall time,
@@ -7,6 +7,28 @@ wall clock stops only after ``torch.cuda.synchronize()``, so it covers the
 device work the epoch queued.  :func:`trace` writes a ``torch.profiler``
 trace, and :func:`compiled_stats` counts a call's operations, the hand
 kernels' bytes and its peak device memory.
+
+:func:`span` marks a stage of the port on the profiler's clock.  While a
+profiler runs (:func:`trace`, or any ``torch.profiler.profile``) each span
+is a ``record_function`` range, so a trace shows the stages beside the
+kernels they queued; otherwise a span is a shared no-op context and builds
+nothing.  ``analyze_epoch`` (``models/pipeline.py``) opens these spans,
+nested by time on the calling thread:
+
+* ``apda.epoch``: one call of ``analyze_epoch`` (adaptive mode's
+  prominence pass is a second, nested one);
+* ``apda.place``: host arrays to the epoch's device (samples, rates,
+  lengths; the rigid wipe table);
+* ``apda.route``: the single-window route, with one ``apda.route.pass`` a
+  kernel call and one ``apda.route.readback`` a dynamic-budget pass;
+* ``apda.batched``: the batched path, with one ``apda.pass`` a pass over
+  the epoch (``apda.frontend``, ``apda.detect`` and within it
+  ``apda.refine``) and, under the dynamic budget, one ``apda.readback``
+  after each pass.
+
+A request whose ``apda.route`` is followed by ``apda.batched`` was handed
+from the route to the batched path.  A span adds no synchronisation and
+changes no result.
 """
 
 from __future__ import annotations
@@ -20,6 +42,20 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from apda_fft_tpu_torch.utils import kernels
+
+
+#: The one context a span returns while no profiler runs.
+_NO_SPAN = contextlib.nullcontext()
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function(name)`` range while a profiler
+    runs, else a shared no-op context: ``with span("apda.place"): ...``.
+    Untraced, it costs one check and builds nothing."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 class EpochMetrics:

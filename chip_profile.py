@@ -9,6 +9,7 @@
     python3 chip_profile.py --fast-modes    # item 7 only, ~1 min
     python3 chip_profile.py --threshold-order   # item 8 only, ~30 s
     python3 chip_profile.py --lowlat-against OTHER_TREE   # item 9 only, ~1 min
+    python3 chip_profile.py --span-cost     # item 10 only, ~10 s
 
 1. profile: flexible ``analyze_epoch`` (refine, lowlat="never") on the
    B=2048 x N=4096 clean and noisy corpora of ``chip_smoke.py``, after two
@@ -72,6 +73,11 @@
    two-tone windows at N in {4096, 32768, 65536} (profiler device time,
    CUDA-event call, routed ``analyze_epoch`` host wall), each tree in a
    fresh process, in the order other, this, this, other.
+10. span cost: the host time of one ``utils.profiling.span`` entered and
+   left with no profiler running, of one bare
+   ``torch.profiler.record_function`` likewise, and of one span under a
+   running ``torch.profiler`` (host and CUDA activity); best of three
+   loops of 50,000 (5,000 under the profiler).
 
 Every line carries the card's name and power limit.  Exit code 0 unless a
 check fails; the probe's mismatches are reported, not raised.
@@ -597,6 +603,28 @@ def lowlat_against(other: str, card: str) -> None:
                     f"{v:.4f}" for v in times[case]) for tree, times in runs) + f"; {card}")
 
 
+def span_cost(card: str) -> None:
+    from apda_fft_tpu_torch.utils import profiling
+
+    def per_span_us(make, n: int) -> float:
+        best = float("inf")
+        for _ in range(3):
+            t = time.perf_counter()
+            for _ in range(n):
+                with make("apda.probe"):
+                    pass
+            best = min(best, (time.perf_counter() - t) / n * 1e6)
+        return best
+
+    off = per_span_us(profiling.span, 50_000)
+    bare = per_span_us(torch.profiler.record_function, 50_000)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities):
+        on = per_span_us(profiling.span, 5_000)
+    log(f"span cost, us a span: span() untraced {off:.3f}, record_function untraced "
+        f"{bare:.3f}, span() under the profiler {on:.3f} | {card}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--skip-cpu-probe", action="store_true")
@@ -615,6 +643,8 @@ def main() -> int:
     parser.add_argument("--sass", metavar="OTHER_TREE",
                         help="only compare the kernels' compiled code with another "
                              "checkout's (item 5)")
+    parser.add_argument("--span-cost", action="store_true",
+                        help="only time one span, off and under the profiler (item 10)")
     parser.add_argument("--cpu-probe-child", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--cpu-gemm-child", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args()
@@ -629,6 +659,9 @@ def main() -> int:
         print(" | ".join(cpu_mismatch(chip_smoke.clean_batch(256))))
         return 0
     card = chip_smoke.phase_device()
+    if args.span_cost:
+        span_cost(card)
+        return 0
     if args.sass:
         sass_compare(args.sass, card)
         log(card)
