@@ -71,9 +71,13 @@ _TIER_GRID = (4, 6, 8, 12, 16, 24, 32, 48, 64)
 _DYNAMIC_FLOOR = 2
 #: Stats of the most recent dynamic-budget run on this thread.
 _dynamic_tls = threading.local()
-#: Largest flexible budget the single-window latency route runs.  A window
-#: that needs more goes to the batched path.  The JAX package's limit, kept
-#: so that both packages route the same windows.
+#: Largest flexible budget the single-window latency route runs: the
+#: kernel's 64 slots, one round.  A window whose pass at this budget still
+#: reports more goes to the batched path.  The JAX package hands a window
+#: off as soon as any pass reports more than 64 (its kernel's compile time
+#: grows with the budget); the port first re-runs it here, so it also
+#: serves windows whose reported bound passes 64 but whose need does not.
+#: Decisions are the same either way.
 LOWLAT_MAX_BUDGET = 64
 
 
@@ -812,8 +816,13 @@ def _analyze_lowlat(samples, fs, *, n_fft: int, mode: str, k: int, refine: bool,
     Windows longer than the kernel's ``LOWLAT_MAX_N`` take the batched
     path.  Rigid runs once.  Flexible shares the batched path's sticky budget
     table and overflow re-run, capped at ``LOWLAT_MAX_BUDGET``: a sticky
-    budget already past the cap skips the kernel, and a window that needs
-    more than the cap is handed to the batched path.
+    budget already past the cap skips the kernel.  A pass whose walk did not
+    finish reports the window's candidate count, a bound on its need, so a
+    report past the cap from a pass under it re-runs at the cap; only a pass
+    at the cap that reports more hands the window to the batched path.  The
+    JAX package hands off on the first report past 64, so the two route
+    different windows, with the same decisions: a served window always
+    satisfies ``n_required <= budget``.
     """
     from apda_fft_tpu_torch.ops import latency_cuda
 
@@ -846,7 +855,7 @@ def _analyze_lowlat(samples, fs, *, n_fft: int, mode: str, k: int, refine: bool,
                 n_req, n_max = torch.cat([res.n_required, res.n_candidates]).tolist()
             if n_req <= budget:
                 break
-            if n_req > cap:
+            if budget >= cap:
                 return None  # the batched path re-runs it
             budget = min(
                 max(_pow2_at_least(n_req), _dynamic_budget_hwm.get(key, 0), _DYNAMIC_FLOOR),

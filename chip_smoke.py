@@ -56,8 +56,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    N=32768 and 65536 in both modes (only the cluster kernels launch): all
    four latency kernels must launch; every kernel call of the route is held
    against the plain version; decisions equal ``lowlat="never"`` on the
-   card and the float64 oracle; a window needing 71 slots goes to the
-   batched path and still equals ``lowlat="never"``;
+   card and the float64 oracle; a noisy window whose pass at budget 2
+   reports its 74 candidates, past the 64-slot cap, while its walk needs 10
+   is re-run at 64 and served by two flexible launches and no B1 launch;
+   a window needing 71 slots is re-run at 64, then goes to the batched
+   path, and still equals ``lowlat="never"``;
 9. latency times for cfg1 and cfg2: the kernel alone (device time from
    ``torch.profiler``, and CUDA events over back-to-back calls), the routed
    ``analyze_epoch``, ``lowlat="never"`` and the plain version (host wall
@@ -916,6 +919,18 @@ def overflow_window(n: int = 4096) -> np.ndarray:
                for b in range(1100, 1313, 3)).astype(np.float32)
 
 
+def bound_past_cap_window() -> np.ndarray:
+    """Row 1 of a seeded pool of ``bench.py``'s noisy model (unit noise,
+    four damped modes; N 4096): 74 candidates.  A pass at budget 2 stops its
+    walk short and reports all 74, past the route's 64 slots; the pass at
+    64 finishes its walk at 10."""
+    from portbench.generators.sensor_windows import make_pool
+
+    signal = {"noise_std": 1.0, "modes": [[12.3, 0.9, 0.01], [47.7, 0.7, 0.008],
+                                          [88.4, 0.55, 0.015], [141.2, 0.45, 0.02]]}
+    return make_pool(signal, rows=64, n=4096, fs=FS, seed=0)[1]
+
+
 def rigid_edge_window(n: int = 16384) -> np.ndarray:
     """A window whose rigid greedy outgrows the kernel's 64 edge slots.  Its
     spectrum: at bins j = 40, ... up to 8 % of the half spectrum, a spike
@@ -1128,14 +1143,42 @@ def phase_route(oracle, signals) -> tuple[dict[str, int], dict[str, float]]:
                 log(f"[8 route] two-tone N={n} {mode}: {grew[key]} launch(es) of {key}, no "
                     f"other; idx {res.idx[0, :c].tolist()} equal to the float64 oracle and "
                     f"lowlat=never")
-        before = latency_cuda.launches["lowlat_flexible"]
+        # A bound past the cap, a need under it: the route re-runs the
+        # window at the cap and serves it, with no batched pass.
+        x = bound_past_cap_window()
+        pipeline.reset_dynamic_state()
+        n_calls, before, b1_before = len(calls), dict(latency_cuda.launches), detector_cuda.launches
+        res = pipeline.analyze_epoch(torch.from_numpy(x[None]).cuda(), FS, n_fft=4096,
+                                     mode="flexible", refine=True)
+        budgets = [kw["max_candidates"] for _, _, kw, _ in calls[n_calls:]]
+        grew = {k: v - before[k] for k, v in latency_cuda.launches.items() if v != before[k]}
+        assert budgets == [2, pipeline.LOWLAT_MAX_BUDGET], budgets
+        assert grew == {"lowlat_flexible": 2}, grew
+        assert detector_cuda.launches == b1_before, "the retried window launched B1"
+        stats = pipeline.last_dynamic_stats()
+        assert stats["n_required_max"] <= pipeline.LOWLAT_MAX_BUDGET < stats["n_candidates_max"]
+        pipeline.reset_dynamic_state()
+        route(x, "flexible", True)
+        want = oracle.oracle_analyze(x.astype(np.float64), FS, "flexible")
+        c = int(res.count[0])
+        assert res.idx[0, :c].tolist() == [p["idx"] for p in want]
+        np.testing.assert_allclose(res.freq[0, :c].cpu().numpy(), [p["freq"] for p in want],
+                                   atol=1e-4, rtol=1e-6)
+        log(f"[8 route] bound past the cap: budgets {budgets}, 2 lowlat_flexible launches, no "
+            f"B1; n_required {stats['n_required_max']} of {stats['n_candidates_max']} "
+            f"candidates; idx {res.idx[0, :c].tolist()} equal to the float64 oracle and "
+            f"lowlat=never")
+        n_calls, before = len(calls), latency_cuda.launches["lowlat_flexible"]
         route(overflow_window(), "flexible", True)
         launches = dict(latency_cuda.launches)
+        budgets = [kw["max_candidates"] for _, _, kw, _ in calls[n_calls:]]
         budget = pipeline.dynamic_state()["budget"][(4096, "flexible")]
         assert launches["lowlat_flexible"] > before
+        assert budgets[-1] == pipeline.LOWLAT_MAX_BUDGET, budgets
         assert budget > pipeline.LOWLAT_MAX_BUDGET, budget
-        log(f"[8 route] 71-slot window: the kernel reported it, the batched path re-ran it "
-            f"(budget {budget}); equal to lowlat=never")
+        log(f"[8 route] 71-slot window: route budgets {budgets}, the pass at the cap still "
+            f"reported past it, the batched path re-ran it (budget {budget}); equal to "
+            f"lowlat=never")
     finally:
         latency_cuda.analyze_window_lowlat = wrapper
         pipeline.reset_dynamic_state()

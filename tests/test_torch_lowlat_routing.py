@@ -3,11 +3,15 @@
 The route needs a CUDA device, so these tests monkeypatch the port's device
 predicate and swap the kernel entry for a counting wrapper that runs the
 plain version (the window is on the CPU) - covering here the decision
-logic that ``chip_smoke.py`` checks on the card end to end.  Each test is
-the counterpart of one in ``tests/test_lowlat_routing.py``; the last one
-runs the JAX package's faked-TPU route and the port's faked route on the
-same windows and requires the same budgets per kernel call and the same
-learned budgets afterwards.
+logic that ``chip_smoke.py`` checks on the card end to end.  Each test but
+one is the counterpart of one in ``tests/test_lowlat_routing.py``; the last
+one runs the JAX package's faked-TPU route and the port's faked route on
+the same windows and requires the same budgets per kernel call and the same
+learned budgets afterwards.  ``test_bound_past_cap_retries_at_cap`` has no
+JAX counterpart: the JAX route hands a window off as soon as a pass reports
+more than 64 slots (its kernel's compile time grows with the budget), while
+the port's route re-runs it at 64 first, so the two route such a window
+differently; its decisions are held against the JAX package's batched path.
 """
 
 import jax
@@ -19,6 +23,7 @@ import apda_fft_tpu.ops.latency_pallas as JL
 import apda_fft_tpu_torch.models.pipeline as P
 import apda_fft_tpu_torch.ops.latency_cuda as L
 from apda_fft_tpu_torch.models.pipeline import analyze_epoch
+from portbench.generators.sensor_windows import make_pool
 
 
 @pytest.fixture
@@ -48,6 +53,16 @@ def _modal(n, fs=500.0, seed=7):
         + 0.05 * rng.standard_normal(n)
     )
     return x.astype(np.float32)
+
+
+def _bound_past_cap():
+    """Row 1 of a seeded pool of ``bench.py``'s noisy model (unit noise and
+    four damped modes; N 4096 at 500 Hz): 74 candidates.  A pass at budget 2
+    or 8 stops its walk short and reports all 74, past the 64-slot cap; the
+    pass at 64 finishes its walk at 10 slots."""
+    signal = {"noise_std": 1.0, "modes": [[12.3, 0.9, 0.01], [47.7, 0.7, 0.008],
+                                          [88.4, 0.55, 0.015], [141.2, 0.45, 0.02]]}
+    return make_pool(signal, rows=64, n=4096, fs=500.0, seed=0)[1]
 
 
 def _same_decisions(a, b):
@@ -92,10 +107,39 @@ def test_overflow_past_cap_falls_back_to_batched(fake_card):
         np.sin(2 * np.pi * (b * fs / n) * t) for b in range(1100, 1313, 3)
     ).astype(np.float32)
     routed = analyze_epoch(x[None], fs, mode="flexible", device="cpu")
-    assert len(fake_card) >= 1
+    assert fake_card == [2, P.LOWLAT_MAX_BUDGET]  # the retry at the cap, then the hand-off
     assert P._dynamic_budget[(4096, "flexible")] > P.LOWLAT_MAX_BUDGET
     unrouted = analyze_epoch(x[None], fs, mode="flexible", lowlat="never", device="cpu")
     _same_decisions(routed, unrouted)
+
+
+def test_bound_past_cap_retries_at_cap(fake_card, monkeypatch):
+    # A pass at the sticky budget 8 reports the candidate count, 74, past
+    # the cap: a bound, not the need.  The route re-runs the window at the
+    # cap, where the walk finishes, and serves it with no batched pass.
+    x = _bound_past_cap()
+    P._dynamic_budget[(4096, "flexible")] = 8
+
+    def no_batched_pass(*args, **kwargs):
+        raise AssertionError("the batched path ran")
+
+    with monkeypatch.context() as m:
+        m.setattr(P, "_run_dynamic", no_batched_pass)
+        routed = analyze_epoch(x[None], 500.0, mode="flexible", refine=True, device="cpu")
+    assert fake_card == [8, P.LOWLAT_MAX_BUDGET]
+    stats = P.last_dynamic_stats()
+    assert stats["candidate_budget"] == P.LOWLAT_MAX_BUDGET and stats["budget_passes"] == 2
+    assert stats["n_candidates_max"] > P.LOWLAT_MAX_BUDGET >= stats["n_required_max"]
+    assert P._dynamic_budget[(4096, "flexible")] <= P.LOWLAT_MAX_BUDGET
+    unrouted = analyze_epoch(x[None], 500.0, mode="flexible", refine=True, lowlat="never",
+                             device="cpu")
+    assert len(fake_card) == 2
+    _same_decisions(routed, unrouted)
+    # The JAX package's batched path with every bin of the half spectrum a slot.
+    want = JP.analyze_epoch(x[None], 500.0, mode="flexible", refine=True, max_candidates=2048,
+                            dtype=np.float32)
+    assert int(routed.count[0]) == int(want.count[0])
+    assert np.array_equal(routed.idx[0].numpy(), np.asarray(want.idx[0]))
 
 
 def test_early_complete_walk_keeps_kernel_result_past_candidate_overflow(fake_card):

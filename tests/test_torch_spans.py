@@ -19,9 +19,10 @@ from torch.profiler import ProfilerActivity, profile
 import apda_fft_tpu_torch.models.pipeline as P
 import apda_fft_tpu_torch.ops.latency_cuda as L
 from apda_fft_tpu_torch.utils import profiling
+from portbench.generators.sensor_windows import make_pool
 
 FS = 500.0
-CASES = ("batched", "route_flexible", "route_rigid", "handoff")
+CASES = ("batched", "route_flexible", "route_rigid", "retry", "handoff")
 
 
 @pytest.fixture(autouse=True)
@@ -64,6 +65,15 @@ def _past_the_cap() -> np.ndarray:
         np.float32)
 
 
+def _bound_past_cap() -> np.ndarray:
+    """Row 1 of a seeded pool of ``bench.py``'s noisy model at N 4096: the
+    pass at budget 2 reports its 74 candidates, past the route's 64, and the
+    route re-runs it at 64, where the walk finishes at 10 slots."""
+    signal = {"noise_std": 1.0, "modes": [[12.3, 0.9, 0.01], [47.7, 0.7, 0.008],
+                                          [88.4, 0.55, 0.015], [141.2, 0.45, 0.02]]}
+    return make_pool(signal, rows=64, n=4096, fs=FS, seed=0)[1]
+
+
 def _epoch(case: str):
     """One ``analyze_epoch`` call of ``case`` on the CPU."""
     if case == "batched":
@@ -74,6 +84,9 @@ def _epoch(case: str):
                                device="cpu")
     if case == "route_rigid":
         return P.analyze_epoch(_modal(1024)[None], FS, mode="rigid", device="cpu")
+    if case == "retry":
+        return P.analyze_epoch(_bound_past_cap()[None], FS, mode="flexible", refine=True,
+                               device="cpu")
     assert case == "handoff"
     return P.analyze_epoch(_past_the_cap()[None], FS, mode="flexible", refine=True,
                            device="cpu")
@@ -152,6 +165,14 @@ def test_routed_window_spans(fake_card, case):
         assert len(fake_card) == 1
     assert _span_tree(prof) == [
         ("apda.epoch", [("apda.place", []), _route(len(fake_card), flexible)])]
+
+
+def test_retried_window_spans(fake_card):
+    _, prof = _traced(lambda: _epoch("retry"))
+    assert fake_card == [2, P.LOWLAT_MAX_BUDGET]
+    assert P.last_dynamic_stats()["budget_passes"] == 2
+    assert _span_tree(prof) == [
+        ("apda.epoch", [("apda.place", []), _route(2, True)])]
 
 
 def test_handed_off_window_spans(fake_card):
