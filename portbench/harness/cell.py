@@ -8,7 +8,13 @@ mix; each part is a file found by name:
   ``"entry"``;
 * ``portbench/entries/<entry>.py``: the entry point a request goes
   through, with ``make_call``, ``counters`` and ``check`` (the comparison
-  with the reference);
+  with the reference).  ``make_call(config, device=, precision=)``
+  returns the timed call: it takes one request's host rows (an array
+  whose first axis is the request's rows) and returns a dict of host
+  NumPy arrays, the first axis of each being those rows, with ``"mag"``
+  among the keys.  The tests plant their faults on that contract (a
+  stale result, half the rows, an altered ``mag``).  On the CPU a request
+  may take any time: the tests count requests, not seconds;
 * ``portbench/traffic/<traffic>.json``: the parameters of the request
   loop (``loop.py``) and of the ``"generator"`` it names;
 * ``portbench/generators/<generator>.py``: ``make_pool``, the seeded pool
@@ -20,6 +26,11 @@ mix; each part is a file found by name:
 
 So a new cell, metric, entry point or signal model is new files and
 entries, never an edit.
+
+A configuration names its reference (``"reference"``).  The tests hold
+``portbench/reference/apda_float64.py`` against ``tests/oracle.py`` on the
+cells that use it alone; a configuration with another reference brings
+its own test of that reference in the change that adds it.
 """
 
 from __future__ import annotations

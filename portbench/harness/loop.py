@@ -15,7 +15,8 @@ from the generator the traffic mix names
 
 :func:`execute` is one run of a cell.  ``run.py`` calls it on the card;
 the tests call it on the CPU, and may put another request function in the
-program's place (``call=``) to see a broken path fail the check.
+program's place (``call=``) to see a broken path fail the check, and
+count the window's requests (``requests=``) instead of its seconds.
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ def request_starts(order: str, count: int, rows: int, width: int, seed: int,
 
 def execute(cell, seed: int, seconds: float, trace: bool, *, t0: float,
             device=None, precision: str | None = None, call=None,
-            sync=None, log=print) -> dict:
+            sync=None, log=print, requests: int | None = None) -> dict:
     """One run: returns ``{"run", "pool", "width", "kept", "attempted",
     "failed"}``; ``kept`` holds ``(first pool row, host results)`` of a
     seeded sample of the window's requests (a traced run keeps all).
@@ -68,7 +69,9 @@ def execute(cell, seed: int, seconds: float, trace: bool, *, t0: float,
     ``t0`` is the process's start on ``time.perf_counter``; ``sync`` waits
     for the device (``torch.cuda.synchronize`` on the card).  A traced run
     measures ``traffic["trace_requests"]`` requests under the profiler
-    instead of ``seconds``.
+    instead of ``seconds``.  ``requests`` makes the window exactly that
+    many requests, whatever the clock (the CPU tests, where a request may
+    take any time); a measured or traced run never passes it.
     """
     from portbench.harness import trace as tracing
 
@@ -95,6 +98,8 @@ def execute(cell, seed: int, seconds: float, trace: bool, *, t0: float,
     sync()
 
     cap = int(traffic["trace_requests"]) if trace else MAX_REQUESTS
+    if requests is not None:
+        cap = int(requests)
     starts = request_starts(order, cap, len(pool), width, seed, stream=1)
     keep_every = 1 if trace else int(traffic.get("keep_every", 1))
     keep = np.random.default_rng([seed, 3]).integers(0, keep_every, size=cap) == 0
@@ -109,7 +114,7 @@ def execute(cell, seed: int, seconds: float, trace: bool, *, t0: float,
     start = time.perf_counter()
     end = start
     i = 0
-    while i < cap and (trace or end - start < seconds):
+    while i < cap and (trace or requests is not None or end - start < seconds):
         s = int(starts[i])
         if trace:
             before = cell.entry.counters()

@@ -1,8 +1,9 @@
 """The harness on the CPU: the cells resolve, the file obeys the
 benchmark's rules, the generators repeat, the yardstick matches the
-port's work formulas, the result line has its keys, a broken timed path
-fails the check; and, on the card (``gpu``), one whole run and the
-control."""
+port's work formulas, the result line has its keys, a window counts
+requests when told to and seconds otherwise, every entry keeps its output
+contract, a broken timed path fails the check; and, on the card
+(``gpu``), one whole run and the control."""
 
 from __future__ import annotations
 
@@ -22,20 +23,13 @@ sys.path.insert(0, ROOT)
 from portbench.harness import cell as cellmod  # noqa: E402
 from portbench.harness import loop, report, roofline  # noqa: E402
 from portbench.harness.trace import TraceSlice  # noqa: E402
+from portbench.tests.cpu_cells import REQUESTS, small  # noqa: E402
 
 BENCH = cellmod.load_benchmark()
 CELLS = [w["name"] for w in BENCH["workloads"]]
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 FIVE = ["correct", "attempted", "failed", "metrics", "device"]
-
-
-def small(name: str):
-    c = cellmod.load_cell(name)
-    w = c.traffic["windows_per_request"]
-    c.traffic.update(pool_windows=24 if w == 1 else 48, warmup_requests=2, trace_requests=3,
-                     keep_every=1, **({} if w == 1 else {"windows_per_request": 16}))
-    return c
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -48,7 +42,7 @@ def test_every_cell_resolves_to_its_files(name):
     assert os.path.isfile(os.path.join(ROOT, "portbench", "entries", c.config["entry"] + ".py"))
     assert os.path.isfile(os.path.join(ROOT, "portbench", "generators",
                                        c.traffic["generator"] + ".py"))
-    assert c.chips == 1 and c.end_to_end and c.per_layer
+    assert c.chips in (1, 4) and c.end_to_end and c.per_layer
     assert "setup_s" in [m.name for m in c.end_to_end]
     assert len(c.end_to_end) >= 2
     for m in c.end_to_end + c.per_layer:
@@ -70,7 +64,11 @@ def test_benchmark_file_obeys_the_rules():
     for w in BENCH["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert w["config"] in names and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4)
         names += [w["name"], w["traffic"]]
+    # Of the cells at most a quarter, rounded down, or one, take four cards.
+    four = sum(w["chips"] == 4 for w in BENCH["workloads"])
+    assert four <= max(len(BENCH["workloads"]) // 4, 1)
     e2e = {m["name"] for m in BENCH["end_to_end"]}
     assert "setup_s" in e2e
     for m in BENCH["end_to_end"]:
@@ -147,7 +145,7 @@ def test_metric_readers_on_a_made_up_trace():
         "lowlat_device_ms.window": None, "lowlat_roofline.window": None}
 
 
-def test_fallback_readers_read_only_the_requests_that_left_the_route():
+def test_routed_share_counts_out_the_request_that_left_the_route():
     cell = cellmod.load_cell("footbridge_n4096.window_noisy")
     # Request 0 stays on the route; 1 tries it and leaves (a B1 launch
     # besides); 2 skips it (no lowlat launch).
@@ -165,18 +163,15 @@ def test_fallback_readers_read_only_the_requests_that_left_the_route():
                    trace=sl, counters=counters)
     got = {m.name: m.reader.read(run) for m in cell.per_layer}
     assert got["routed_share.window"] == pytest.approx(100 / 3)
-    assert got["fallback_ms.window"] == pytest.approx(7.0)
-    assert got["fallback_launches.window"] == 2.0
     assert "lowlat_device_ms.window" not in got
-    run.counters = counters[:1] * 3
-    assert cellmod.metric_reader("fallback_ms.window").read(run) is None
-    assert cellmod.metric_reader("fallback_launches.window").read(run) is None
 
 
 @pytest.mark.parametrize("traced", [False, True])
 def test_result_line_has_exactly_its_keys(traced):
     c = small("footbridge_n4096.epoch_clean")
-    result = loop.execute(c, 99, 0.2, traced, t0=time.perf_counter(), device="cpu")
+    result = loop.execute(c, 99, 0.0, traced, t0=time.perf_counter(), device="cpu",
+                          requests=REQUESTS)
+    assert result["attempted"] == REQUESTS
     line, lines = report.build(c, result, {"platform": "gpu", "kind": "x", "count": 1,
                                            "memory_peak_bytes": 1}, traced)
     assert list(line) == FIVE + (["breakdown"] if traced else []) + ["checks"]
@@ -186,6 +181,45 @@ def test_result_line_has_exactly_its_keys(traced):
     if traced:
         assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
         assert line["device"]["window_s"] > 0
+
+
+def _sleeps(x):
+    """A planted request that sleeps 0.4 s."""
+    time.sleep(0.4)
+    return {"mag": np.zeros((len(x), 1), np.float32)}
+
+
+def test_a_counted_window_runs_its_requests_whatever_the_clock():
+    c = small(CELLS[0])
+    result = loop.execute(c, 2**31 + 21, 0.3, False, t0=time.perf_counter(), call=_sleeps,
+                          requests=REQUESTS)
+    assert result["attempted"] == REQUESTS and result["failed"] == 0
+    assert len(result["run"].latencies_s) == REQUESTS
+    assert result["run"].window_s >= REQUESTS * 0.4
+
+
+def test_without_a_count_the_clock_ends_the_window():
+    """What a measured run does: the first request that ends past
+    ``seconds`` closes the window (the second, at 0.8 s of 0.6)."""
+    c = small(CELLS[0])
+    result = loop.execute(c, 2**31 + 22, 0.6, False, t0=time.perf_counter(), call=_sleeps)
+    assert result["attempted"] == 2
+    assert result["run"].window_s >= 0.8
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_every_entry_returns_host_arrays_of_the_requests_rows(name):
+    """The output contract of ``make_call`` (``harness/cell.py``) that the
+    planted faults rely on."""
+    c = small(name)
+    w = int(c.traffic["windows_per_request"])
+    pool = c.generator.make_pool(c.traffic["signal"], rows=int(c.traffic["pool_windows"]),
+                                 n=c.config["n_fft"], fs=c.config["fs"], seed=2**31 + 23)
+    out = c.entry.make_call(c.config, device="cpu")(pool[:w])
+    assert isinstance(out, dict) and "mag" in out
+    for field, v in out.items():
+        assert isinstance(v, np.ndarray), (field, type(v))
+        assert v.shape[:1] == (w,), (field, v.shape)
 
 
 def _broken(c, fault: str):
@@ -216,9 +250,9 @@ def _broken(c, fault: str):
                          + [(n, "half") for n in CELLS if "epoch" in n])
 def test_a_broken_timed_path_is_not_correct(name, fault):
     c = small(name)
-    result = loop.execute(c, 2**32 + 3, 0.3, False, t0=time.perf_counter(),
-                          call=_broken(c, fault))
-    assert result["attempted"] >= 2
+    result = loop.execute(c, 2**32 + 3, 0.0, False, t0=time.perf_counter(),
+                          call=_broken(c, fault), requests=REQUESTS)
+    assert result["attempted"] == REQUESTS
     line, _ = report.build(c, result, {}, False)
     assert line["correct"] is False, line["checks"]
 
