@@ -29,6 +29,7 @@ JAX package's dictionaries as they are).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
 from typing import Any
 
@@ -135,13 +136,25 @@ def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 def _fs_tensor(fs, dtype: torch.dtype, device) -> torch.Tensor:
     """Sampling rate(s) ``fs`` as a ``dtype`` tensor on ``device``; a scalar
-    is filled there, so placing it does not wait for the card either."""
+    is filled there, so placing it does not wait for the card either, once
+    per value (:func:`_rate_scalar`).  Callers never write to the result."""
     if isinstance(fs, torch.Tensor):
         return fs.detach().to(device=device, dtype=dtype)
     a = np.asarray(fs)
     if a.ndim == 0:
-        return torch.full((), float(a), dtype=dtype, device=device)
+        v = float(a)
+        if v:  # 0.0 and -0.0 would share a cache entry
+            return _rate_scalar(v, dtype, device)
+        return torch.full((), v, dtype=dtype, device=device)
     return _from_host(a, device, dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _rate_scalar(value: float, dtype: torch.dtype, device) -> torch.Tensor:
+    """The 0-dim ``dtype`` tensor ``value`` on ``device``, shared by every
+    call with the same arguments; filled on the stream current at its first
+    use (the port queues its work on one stream)."""
+    return torch.full((), value, dtype=dtype, device=device)
 
 
 def _lowlat_device(samples: torch.Tensor) -> bool:
@@ -494,6 +507,16 @@ def _epoch_spectra(
     return fft_ops.halfspec_magnitudes(windows, backend=backend, precision=precision)
 
 
+@functools.lru_cache(maxsize=256)
+def _half_corrections(fs: float, n_fft: int) -> np.ndarray | None:
+    """:func:`rigid_half_corrections`, computed once per ``(fs, n_fft)``;
+    the table is shared, so it is read-only."""
+    c = rigid_half_corrections(fs, n_fft)
+    if c is not None:
+        c.flags.writeable = False
+    return c
+
+
 def _rigid_corr_batch(fs_host: np.ndarray, lead, n_fft: int) -> np.ndarray | None:
     """Per-window non-dyadic wipe-rounding tables ``[*lead, ceil(H/50)]``
     int8 from the ORIGINAL float64 rates, or None when every table is empty
@@ -508,7 +531,7 @@ def _rigid_corr_batch(fs_host: np.ndarray, lead, n_fft: int) -> np.ndarray | Non
     for i, v in enumerate(fs_host):
         key = float(v)
         if key not in tables:
-            tables[key] = rigid_half_corrections(key, n_fft)
+            tables[key] = _half_corrections(key, n_fft)
         c = tables[key]
         if c is not None:
             if out is None:
@@ -616,7 +639,7 @@ def analyze_epoch(
         windows (0 disables).
       lowlat: ``"auto"`` routes an epoch of one full float32 window on a
         CUDA device through the single-window kernels
-        (``ops.latency_cuda.analyze_window_lowlat``, one launch per pass);
+        (``ops.latency_cuda``, one launch per pass);
         ``"never"`` always runs the batched path.  Decisions are the same.
       taper: "none" (reference rectangular window), "hann", "hamming" or
         "blackman", amplitude-normalized, applied after centering.
@@ -829,30 +852,31 @@ def _analyze_lowlat(samples, fs, *, n_fft: int, mode: str, k: int, refine: bool,
     if n_fft > latency_cuda.LOWLAT_MAX_N:
         return None
     lead = samples.shape[:-1]
-    flat = samples.reshape(-1)
-    fs_scalar = fs.broadcast_to(lead).reshape(())
+    flat = samples.reshape(-1).contiguous()
+    if fs.dim():
+        fs = fs.broadcast_to(lead).reshape(())
 
-    def run(budget: int) -> EpochResult:
+    def run(budget: int) -> tuple[EpochResult, torch.Tensor]:
         with span("apda.route.pass"):
-            return latency_cuda.analyze_window_lowlat(
-                flat, fs_scalar, n_fft=n_fft, mode=mode, k=k, max_candidates=budget,
-                refine=refine,
-            )
+            latency_cuda._check_window(n_fft, mode, k)
+            return latency_cuda._route_pass(flat, fs, lead=lead, mode=mode, k=k, budget=budget,
+                                            refine=refine)
 
     cap = LOWLAT_MAX_BUDGET
     key = (n_fft, mode)
     res = None
     if mode == "rigid":
-        res = run(_DYNAMIC_FLOOR)  # budget unused by rigid
+        res, _ = run(_DYNAMIC_FLOOR)  # budget unused by rigid
     elif dynamic and _dynamic_budget.get(key, 0) <= cap:
         budget = min(_dynamic_budget.get(key, _DYNAMIC_FLOOR), cap)
         passes = 0
         while True:
             passes += 1
-            res = run(budget)
-            # One readback per pass: both are [1], so this is their max.
+            res, scalars = run(budget)
+            # One readback per pass, of adjacent words; one window, so these
+            # are the epoch's maxima.
             with span("apda.route.readback"):
-                n_req, n_max = torch.cat([res.n_required, res.n_candidates]).tolist()
+                _, n_max, n_req = scalars.tolist()
             if n_req <= budget:
                 break
             if budget >= cap:
@@ -870,10 +894,8 @@ def _analyze_lowlat(samples, fs, *, n_fft: int, mode: str, k: int, refine: bool,
             n_required_max=n_req, budget_passes=passes,
         )
     elif isinstance(max_candidates, int) and max_candidates <= cap:
-        res = run(max_candidates)
-    if res is None:
-        return None
-    return EpochResult(*(x.reshape(lead + x.shape[1:]) for x in res))
+        res, _ = run(max_candidates)
+    return res
 
 
 def _run_dynamic(run_pass, *, n_fft: int, mode: str, n_windows: int) -> EpochResult:

@@ -14,7 +14,10 @@ is one.
 Dispatch is by the window's device: a CPU tensor runs
 :func:`_analyze_window_lowlat_plain`, the same pipeline in plain torch; a
 CUDA tensor launches the kernel or raises.  ``launches`` counts kernel
-launches per kernel.
+launches per kernel.  ``analyze_epoch``'s single-window route, which has
+placed and checked the window and the rate already, calls
+:func:`_route_pass` once a pass instead of the public wrapper;
+``route_calls`` counts both.
 
 Both kernels read only the FFT's twiddle table, built in float64 on the
 host and cached per window length and device: ``ops.fft_cuda._twiddle_table``
@@ -52,6 +55,10 @@ from apda_fft_tpu_torch.utils import kernels
 #: Kernel launches so far, per kernel (one per call on a CUDA tensor).
 launches = {"lowlat_flexible": 0, "lowlat_rigid": 0, "lowlat_flexible_cluster": 0,
             "lowlat_rigid_cluster": 0}
+
+#: Calls so far: ``internal`` counts the single-window route's passes
+#: (:func:`_route_pass`), ``public`` the calls of :func:`analyze_window_lowlat`.
+route_calls = {"internal": 0, "public": 0}
 
 #: Longest window the kernels take: the window's N/2 magnitudes must fit in
 #: the shared memory of one block, or of a cluster's first CTA (227 KB on
@@ -143,32 +150,56 @@ def lowlat_work(n: int, k: int) -> tuple[int, int]:
     return n * 4 + 4 + 4 * (k + 3 + 6 * k), rfft_mag_flops(n)
 
 
-def _launch(x: torch.Tensor, fs: torch.Tensor, *, mode: str, k: int, budget: int,
-            refine: bool) -> EpochResult:
+def _result_views(out: torch.Tensor, lead: tuple, k: int
+                  ) -> tuple[EpochResult, torch.Tensor]:
+    """The fields of one window's result as views of ``out``, the kernels'
+    int32 words ``[idx k | count | n_candidates | n_required]`` followed by
+    the float32 words ``[freq | mag | prominence | damping | q_factor |
+    refined_freq]``, k each, at batch shape ``lead`` (all ones); and the view
+    ``[count, n_candidates, n_required]`` for one readback.  One
+    ``as_strided`` a field: the fewest operations that give each its shape."""
+    i, f = out.as_strided, out.view(torch.float32).as_strided
+    row, row_st = (*lead, k), (k,) * len(lead) + (1,)
+    one, one_st = tuple(lead), (1,) * len(lead)
+    o = k + 3
+    return EpochResult(
+        count=i(one, one_st, k), idx=i(row, row_st, 0), freq=f(row, row_st, o),
+        mag=f(row, row_st, o + k), prominence=f(row, row_st, o + 2 * k),
+        damping=f(row, row_st, o + 3 * k), q_factor=f(row, row_st, o + 4 * k),
+        refined_freq=f(row, row_st, o + 5 * k), n_candidates=i(one, one_st, k + 1),
+        n_required=i(one, one_st, k + 2),
+    ), i((3,), (1,), k)
+
+
+def _launch(x: torch.Tensor, fs: torch.Tensor, *, lead: tuple, mode: str, k: int,
+            budget: int, refine: bool) -> tuple[EpochResult, torch.Tensor]:
+    """One launch on the contiguous window ``x [N]`` and the 0-dim rate
+    ``fs`` on its card; the result as :func:`_result_views` gives it, in
+    one fresh allocation."""
     n = x.shape[-1]
     if n > LOWLAT_MAX_N:
         raise ValueError(
             f"window length {n} exceeds the latency kernel's limit LOWLAT_MAX_N="
             f"{LOWLAT_MAX_N} (its magnitudes must fit in one block's shared memory)"
         )
-    rigid = mode == "rigid"
+    dev = x.device
     fn, smem_bytes, err_str = _kernel_fn()
-    table = _twiddle_table(n, x.device)
+    table = _twiddle_table(n, dev)
     if x.data_ptr() % 16:  # the kernels read the window as float4
         x = x.clone()
-    iout = torch.empty(k + 3, dtype=torch.int32, device=x.device)
-    fout = torch.empty(6 * k, dtype=torch.float32, device=x.device)
+    out = torch.empty(7 * k + 3, dtype=torch.int32, device=dev)
+    iout = out.data_ptr()
     rc = fn(
-        int(rigid), x.data_ptr(), n, table.data_ptr(), fs.data_ptr(),
-        k, budget, int(refine), iout.data_ptr(), fout.data_ptr(), _block_threads(mode, n),
-        x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+        int(mode == "rigid"), x.data_ptr(), n, table.data_ptr(), fs.data_ptr(),
+        k, budget, int(refine), iout, iout + 4 * (k + 3), _block_threads(mode, n),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     name = kernel_name(mode, n)
     if rc == _NOT_PLACED:
         raise RuntimeError(
             f"{name} launch failed (N={n}, k={k}, budget={budget}): a cluster of "
             f"{CLUSTER_SIZE} CTAs with {smem_bytes(n)} bytes of shared memory each cannot be "
-            f"placed on {torch.cuda.get_device_name(x.device)} "
+            f"placed on {torch.cuda.get_device_name(dev)} "
             f"(cudaOccupancyMaxActiveClusters = 0)"
         )
     if rc != 0:
@@ -178,12 +209,42 @@ def _launch(x: torch.Tensor, fs: torch.Tensor, *, mode: str, k: int, budget: int
         )
     launches[name] += 1
     kernels.note_launch(name, *lowlat_work(n, k))
-    f = fout.view(6, 1, k)
-    return EpochResult(
-        count=iout[k:k + 1], idx=iout[:k].view(1, k), freq=f[0], mag=f[1], prominence=f[2],
-        damping=f[3], q_factor=f[4], refined_freq=f[5], n_candidates=iout[k + 1:k + 2],
-        n_required=iout[k + 2:k + 3],
-    )
+    return _result_views(out, lead, k)
+
+
+def _check_window(n: int, mode: str, k: int) -> None:
+    """The kernels' limits on a full window of ``n`` samples."""
+    if not is_pow2(n) or n < 64:
+        raise ValueError(f"window length must be a power of two >= 64, got {n}")
+    if mode not in ("flexible", "rigid"):
+        raise ValueError(f"unknown mode {mode!r}; expected 'flexible' or 'rigid'")
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+
+
+def _route_pass(x: torch.Tensor, fs: torch.Tensor, *, lead: tuple, mode: str, k: int,
+                budget: int, refine: bool) -> tuple[EpochResult, torch.Tensor]:
+    """One pass of ``analyze_epoch``'s single-window route.
+
+    What :func:`analyze_window_lowlat` does, without its placing and checks:
+    the route hands over the contiguous window ``x [N]`` and its 0-dim
+    float32 rate ``fs`` on one device, both placed, and has checked the
+    window by :func:`_check_window`.  Returns the result at batch shape
+    ``lead`` and its ``[count, n_candidates, n_required]`` view
+    (:func:`_result_views`).  A CPU window runs the plain version, laid out
+    as the kernels lay out theirs.
+    """
+    route_calls["internal"] += 1
+    n = x.shape[-1]
+    budget = min(budget, n // 2)
+    if x.device.type != "cpu":
+        return _launch(x, fs, lead=lead, mode=mode, k=k, budget=budget, refine=refine)
+    r = _analyze_window_lowlat_plain(x, fs, n_fft=n, mode=mode, k=k, budget=budget,
+                                     refine=refine)
+    floats = torch.cat([r.freq, r.mag, r.prominence, r.damping, r.q_factor, r.refined_freq])
+    out = torch.cat([r.idx.reshape(-1), r.count, r.n_candidates, r.n_required,
+                     floats.reshape(-1).view(torch.int32)])
+    return _result_views(out, lead, k)
 
 
 def analyze_window_lowlat(
@@ -210,6 +271,7 @@ def analyze_window_lowlat(
     static budget; decisions are exact iff ``result.n_required <=
     max_candidates`` (the caller re-runs larger otherwise).
     """
+    route_calls["public"] += 1
     x = _placed(x, None, torch.float32)
     if x.dim() == 2:
         if x.shape[0] != 1:
@@ -224,14 +286,9 @@ def analyze_window_lowlat(
         raise ValueError(
             f"latency path requires a full window (N == n_fft), got {n} vs {n_fft}"
         )
-    if not is_pow2(n) or n < 64:
-        raise ValueError(f"window length must be a power of two >= 64, got {n}")
-    if mode not in ("flexible", "rigid"):
-        raise ValueError(f"unknown mode {mode!r}; expected 'flexible' or 'rigid'")
     if k is None:
         k = default_k(mode)
-    if k < 1:
-        raise ValueError(f"k must be >= 1, got {k}")
+    _check_window(n, mode, k)
     budget = min(max_candidates, n // 2)
     fs = torch.as_tensor(
         fs.detach() if isinstance(fs, torch.Tensor) else np.asarray(fs),
@@ -242,4 +299,4 @@ def analyze_window_lowlat(
         return _analyze_window_lowlat_plain(x, fs, n_fft=n_fft, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"no latency kernel for device {x.device}")
-    return _launch(x.contiguous(), fs.contiguous(), **kw)
+    return _launch(x.contiguous(), fs.contiguous(), lead=(1,), **kw)[0]

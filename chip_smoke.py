@@ -1078,16 +1078,25 @@ def phase_lowlat_vs_plain() -> dict[str, float]:
     return worst
 
 
+def _route_kw(kw: dict) -> dict:
+    """A route pass's keywords (``latency_cuda._route_pass``) under the
+    names of ``analyze_window_lowlat``'s."""
+    return {"mode": kw["mode"], "k": kw["k"], "max_candidates": kw["budget"],
+            "refine": kw["refine"]}
+
+
 def phase_route(oracle, signals) -> tuple[dict[str, int], dict[str, float]]:
     """The single-window route through ``analyze_epoch`` on the card.
     Returns the latency kernels' launches in it and the max abs float
-    difference of its kernel calls against the plain version, per kernel."""
+    difference of its kernel calls (one a pass, ``latency_cuda._route_pass``)
+    against the plain version, per kernel."""
     calls = []
-    wrapper = latency_cuda.analyze_window_lowlat
+    route_pass = latency_cuda._route_pass
 
     def tapped(x, fs, **kw):
-        out = wrapper(x, fs, **kw)
-        calls.append((x.clone(), fs.clone(), kw, type(out)(*(o.clone() for o in out))))
+        out = route_pass(x, fs, **kw)
+        res = out[0]
+        calls.append((x.clone(), fs.clone(), _route_kw(kw), type(res)(*(o.clone() for o in res))))
         return out
 
     def route(x, mode, refine, fs=FS):
@@ -1102,7 +1111,7 @@ def phase_route(oracle, signals) -> tuple[dict[str, int], dict[str, float]]:
         return got
 
     pipeline.reset_dynamic_state()
-    latency_cuda.analyze_window_lowlat = tapped
+    latency_cuda._route_pass = tapped
     for key in latency_cuda.launches:
         latency_cuda.launches[key] = 0
     try:
@@ -1180,7 +1189,7 @@ def phase_route(oracle, signals) -> tuple[dict[str, int], dict[str, float]]:
             f"reported past it, the batched path re-ran it (budget {budget}); equal to "
             f"lowlat=never")
     finally:
-        latency_cuda.analyze_window_lowlat = wrapper
+        latency_cuda._route_pass = route_pass
         pipeline.reset_dynamic_state()
     log(f"[8 route] latency kernel launches on the route: {launches}")
     assert all(v > 0 for v in launches.values()), launches
@@ -1734,14 +1743,15 @@ def _counts() -> dict[str, int]:
 
 class _Taps:
     """While active, records every call of the B1, B2/B3 and B4 wrappers
-    (the pipeline looks each up at call time), so that :meth:`check` can
-    hold each call against its plain twin on its own inputs."""
+    and every pass of the single-window route (the pipeline looks each up
+    at call time), so that :meth:`check` can hold each call against its
+    plain twin on its own inputs."""
 
     def __enter__(self):
         self.b1, self.lowlat, self.b4 = [], [], []
-        self._saved = b1, lowlat, b4 = (detector_cuda.prominence_select_scan,
-                                        latency_cuda.analyze_window_lowlat,
-                                        fft_cuda.halfspec_magnitudes_fused)
+        self._saved = b1, lowlat, b4, route_pass = (
+            detector_cuda.prominence_select_scan, latency_cuda.analyze_window_lowlat,
+            fft_cuda.halfspec_magnitudes_fused, latency_cuda._route_pass)
 
         def tap_b1(mags, m):
             out = b1(mags, m)
@@ -1753,6 +1763,13 @@ class _Taps:
             self.lowlat.append((x.clone(), fs.clone(), kw, type(out)(*(o.clone() for o in out))))
             return out
 
+        def tap_route(x, fs, **kw):
+            out = route_pass(x, fs, **kw)
+            res = out[0]
+            self.lowlat.append((x.clone(), fs.clone(), _route_kw(kw),
+                                type(res)(*(o.clone() for o in res))))
+            return out
+
         def tap_b4(x):
             out = b4(x)
             self.b4.append((x.clone(), out.clone()))
@@ -1761,11 +1778,12 @@ class _Taps:
         detector_cuda.prominence_select_scan = tap_b1
         latency_cuda.analyze_window_lowlat = tap_lowlat
         fft_cuda.halfspec_magnitudes_fused = tap_b4
+        latency_cuda._route_pass = tap_route
         return self
 
     def __exit__(self, *exc):
         (detector_cuda.prominence_select_scan, latency_cuda.analyze_window_lowlat,
-         fft_cuda.halfspec_magnitudes_fused) = self._saved
+         fft_cuda.halfspec_magnitudes_fused, latency_cuda._route_pass) = self._saved
 
     def check(self, tag: str) -> dict[str, float]:
         """Every tapped call against its plain twin; returns the max abs

@@ -144,6 +144,7 @@ def test_one_window_takes_the_batched_path(monkeypatch):
 
     monkeypatch.setattr(tpipe, "_lowlat_device", lambda samples: True)
     monkeypatch.setattr(latency_cuda, "analyze_window_lowlat", no_latency_kernel)
+    monkeypatch.setattr(latency_cuda, "_route_pass", no_latency_kernel)
     x = _windows(2, 1024, seed=40)[:1]
     got = tpipe.analyze_epoch(x, FS, backend="pallas", refine=True, device="cpu")
     want = tpipe.analyze_epoch(x, FS, backend="matmul", lowlat="never", refine=True,

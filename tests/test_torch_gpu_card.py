@@ -194,6 +194,72 @@ def test_latency_cluster_kernels_match_plain_and_the_oracle():
                 assert torch.cuda.max_memory_allocated() - held < 64 * 1024, (n, mode)
 
 
+def _noisy_pool(n: int, rows: int, seed: int) -> np.ndarray:
+    """``rows`` windows of ``bench.py``'s noisy model (unit noise, four
+    damped modes), the window cells' traffic (``portbench/traffic``)."""
+    from portbench.generators.sensor_windows import make_pool
+
+    signal = {"noise_std": 1.0, "modes": [[12.3, 0.9, 0.01], [47.7, 0.7, 0.008],
+                                          [88.4, 0.55, 0.015], [141.2, 0.45, 0.02]]}
+    return make_pool(signal, rows=rows, n=n, fs=FS, seed=seed)
+
+
+@pytest.mark.gpu
+def test_route_passes_match_the_plain_twin_and_the_public_wrapper():
+    """``analyze_epoch``'s single-window route on the card, one pass a call
+    of ``latency_cuda._route_pass``: every field bit-equal to the public
+    ``analyze_window_lowlat`` at the route's final budget, decisions equal
+    to the plain twin's.  64 noisy windows at N 1024 rigid and at N 4096
+    flexible with refine (row 1 of the seed-0 pool takes two passes: its
+    pass at budget 2 reports 74 candidates), and a window a mode at N 32768
+    and 65536 on the cluster kernels."""
+    _need_card()
+    fs = torch.tensor(FS, device="cuda")
+    cases = [(xn, "rigid", False) for xn in _noisy_pool(1024, 64, seed=3)]
+    cases += [(xn, "flexible", True) for xn in _noisy_pool(4096, 64, seed=0)]
+    cases += [(_window(n, FS, seed=5), mode, True)
+              for n in (tlat.CLUSTER_MIN_N, tlat.LOWLAT_MAX_N) for mode in ("rigid", "flexible")]
+    two_passes = 0
+    for i, (xn, mode, refine) in enumerate(cases):
+        n = xn.shape[-1]
+        b1, calls = detector_cuda.launches, dict(tlat.route_calls)
+        got = tpipe.analyze_epoch(xn[None], FS, mode=mode, refine=refine)
+        assert detector_cuda.launches == b1, (i, mode)  # served, not handed off
+        passes = tlat.route_calls["internal"] - calls["internal"]
+        assert passes >= 1 and tlat.route_calls["public"] == calls["public"], (i, mode)
+        budget = 2
+        if mode == "flexible":
+            stats = tpipe.last_dynamic_stats()
+            budget = stats["candidate_budget"]
+            assert stats["budget_passes"] == passes, i
+            two_passes += passes == 2
+        x = torch.from_numpy(xn).cuda()
+        public = tlat.analyze_window_lowlat(x, FS, mode=mode, max_candidates=budget,
+                                            refine=refine)
+        plain = tlat._analyze_window_lowlat_plain(x, fs, n_fft=n, mode=mode, k=got.k,
+                                                  budget=min(budget, n // 2), refine=refine)
+        for field, a, b in zip(got._fields, got, public):
+            assert a.shape == b.shape and a.dtype == b.dtype, (i, mode, field)
+            assert torch.equal(a, b), (i, mode, field)
+        for field in DECISIONS:
+            assert torch.equal(getattr(got, field), getattr(plain, field)), (i, mode, field)
+    assert two_passes >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["rigid", "flexible"])
+def test_a_held_route_result_is_unchanged_after_later_requests(mode):
+    _need_card()
+    pool = _noisy_pool(4096, 17, seed=11)
+    first = tpipe.analyze_epoch(pool[0][None], FS, mode=mode, refine=True)
+    kept = [t.clone() for t in first]
+    for xn in pool[1:]:
+        tpipe.analyze_epoch(xn[None], FS, mode=mode, refine=True)
+    torch.cuda.synchronize()
+    for field, a, b in zip(first._fields, first, kept):
+        assert torch.equal(a, b), (mode, field)
+
+
 @pytest.mark.gpu
 def test_front_end_kernel_matches_plain_and_float64():
     _need_card()

@@ -1,8 +1,9 @@
 """``analyze_epoch``'s single-window routing decisions in the port, on the CPU.
 
 The route needs a CUDA device, so these tests monkeypatch the port's device
-predicate and swap the kernel entry for a counting wrapper that runs the
-plain version (the window is on the CPU) - covering here the decision
+predicate and swap the route's per-pass entry (``latency_cuda._route_pass``)
+for a counting wrapper; on the CPU that entry runs the plain version, laid
+out as the kernels lay out their results - covering here the decision
 logic that ``chip_smoke.py`` checks on the card end to end.  Each test but
 one is the counterpart of one in ``tests/test_lowlat_routing.py``; the last
 one runs the JAX package's faked-TPU route and the port's faked route on
@@ -14,30 +15,36 @@ the port's route re-runs it at 64 first, so the two route such a window
 differently; its decisions are held against the JAX package's batched path.
 """
 
+import json
+import math
+from pathlib import Path
+
 import jax
 import numpy as np
 import pytest
+import torch
 
 import apda_fft_tpu.models.pipeline as JP
 import apda_fft_tpu.ops.latency_pallas as JL
 import apda_fft_tpu_torch.models.pipeline as P
 import apda_fft_tpu_torch.ops.latency_cuda as L
 from apda_fft_tpu_torch.models.pipeline import analyze_epoch
+from apda_fft_tpu_torch.ops.peaks_resolution import rigid_half_corrections
 from portbench.generators.sensor_windows import make_pool
 
 
 @pytest.fixture
 def fake_card(monkeypatch):
-    """Pretend the window is on a card; count kernel calls; isolate budgets."""
+    """Pretend the window is on a card; count the route's passes; isolate budgets."""
     calls = []
-    real = L.analyze_window_lowlat
+    real = L._route_pass
 
-    def counting_kernel(*args, **kwargs):
-        calls.append(kwargs.get("max_candidates"))
+    def counting_pass(*args, **kwargs):
+        calls.append(kwargs.get("budget"))
         return real(*args, **kwargs)
 
     monkeypatch.setattr(P, "_lowlat_device", lambda samples: True)
-    monkeypatch.setattr(L, "analyze_window_lowlat", counting_kernel)
+    monkeypatch.setattr(L, "_route_pass", counting_pass)
     saved = P.dynamic_state()
     P.reset_dynamic_state()
     yield calls
@@ -209,3 +216,92 @@ def test_routing_decisions_match_jax(fake_card, monkeypatch):
         JP._dynamic_budget_hwm.clear()
         JP._dynamic_budget.update(saved[0])
         JP._dynamic_budget_hwm.update(saved[1])
+
+
+def _cell_pool(config: str, rows: int = 64, seed: int = 2_900_000_017):
+    """A window cell's configuration and ``rows`` windows of its traffic
+    (``portbench/configs``, ``portbench/traffic/window_noisy.json``)."""
+    root = Path(__file__).resolve().parents[1] / "portbench"
+    cfg = json.loads((root / "configs" / f"{config}.json").read_text())
+    signal = json.loads((root / "traffic" / "window_noisy.json").read_text())["signal"]
+    return cfg, make_pool(signal, rows=rows, n=cfg["n_fft"], fs=cfg["fs"], seed=seed)
+
+
+def _assert_same_fields(got, want):
+    for field, a, b in zip(got._fields, got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, field
+        assert torch.equal(a, b), field
+
+
+@pytest.mark.parametrize("config", ["tunnel_n1024", "footbridge_n4096"])
+def test_route_fields_equal_the_batched_path_and_the_public_wrapper(fake_card, config):
+    """Every field of the route's result, as its per-pass entry lays it out,
+    against ``lowlat="never"`` and the public ``analyze_window_lowlat`` at
+    the route's final budget, on 64 windows of the cell's traffic."""
+    cfg, pool = _cell_pool(config)
+    fs, kw = cfg["fs"], dict(mode=cfg["mode"], k=cfg["k"], refine=cfg["refine"])
+    for row in pool:
+        passes = len(fake_card)
+        routed = analyze_epoch(row[None], fs, device="cpu", **kw)
+        assert len(fake_card) > passes  # served by the route, not handed off
+        budget = P.last_dynamic_stats().get("candidate_budget", P.LOWLAT_MAX_BUDGET)
+        public = L.analyze_window_lowlat(torch.from_numpy(row), fs, max_candidates=budget, **kw)
+        _assert_same_fields(routed, public)
+        _assert_same_fields(routed, analyze_epoch(row[None], fs, device="cpu", lowlat="never",
+                                                  **kw))
+
+
+@pytest.mark.parametrize("mode", ["rigid", "flexible"])
+def test_a_held_route_result_is_not_written_by_the_next_request(fake_card, mode):
+    cfg, pool = _cell_pool("footbridge_n4096", rows=2)
+    first = analyze_epoch(pool[0][None], 500.0, mode=mode, refine=True, device="cpu")
+    kept = [t.clone() for t in first]
+    second = analyze_epoch(pool[1][None], 500.0, mode=mode, refine=True, device="cpu")
+    assert len(fake_card) >= 2
+    firsts = {t.untyped_storage().data_ptr() for t in first}
+    assert not firsts & {t.untyped_storage().data_ptr() for t in second}
+    for field, a, b in zip(first._fields, first, kept):
+        assert torch.equal(a, b), field
+
+
+def test_route_calls_count_passes_and_public_calls(fake_card):
+    before = dict(L.route_calls)
+    P._dynamic_budget[(4096, "flexible")] = 8
+    analyze_epoch(_bound_past_cap()[None], 500.0, mode="flexible", device="cpu")  # two passes
+    analyze_epoch(_modal(1024)[None], 500.0, mode="rigid", device="cpu")  # one pass
+    assert fake_card == [8, P.LOWLAT_MAX_BUDGET, P._DYNAMIC_FLOOR]
+    assert L.route_calls == {"internal": before["internal"] + 3, "public": before["public"]}
+    L.analyze_window_lowlat(torch.from_numpy(_modal(1024)), 500.0, mode="rigid")
+    L.analyze_window_lowlat(torch.from_numpy(_modal(1024)[None]), 500.0, mode="flexible")
+    analyze_epoch(_modal(1024)[None], 500.0, mode="rigid", lowlat="never", device="cpu")
+    assert L.route_calls == {"internal": before["internal"] + 3, "public": before["public"] + 2}
+
+
+@pytest.mark.parametrize("fs, lead", [(1000.0 / 3, (4,)), (99.7, (2, 3)),
+                                      (np.array([500.0, 99.7, 1000.0 / 3]), (3,))])
+def test_a_cached_wipe_table_is_not_written_by_a_non_dyadic_rigid_epoch(fs, lead):
+    n = 1024
+    x = np.random.default_rng(5).standard_normal(lead + (n,)).astype(np.float32)
+    rates = np.broadcast_to(np.asarray(fs, np.float64), lead).reshape(-1)
+    res = analyze_epoch(x, fs, mode="rigid", device="cpu")
+    want = analyze_epoch(x, fs, mode="rigid", device="cpu")
+    _assert_same_fields(res, want)
+    for v in rates:
+        cached, fresh = P._half_corrections(float(v), n), rigid_half_corrections(float(v), n)
+        if fresh is None:
+            assert cached is None
+            continue
+        assert not cached.flags.writeable
+        assert np.array_equal(cached, fresh)
+        with pytest.raises(ValueError):
+            cached[0] += 1
+
+
+def test_a_scalar_rate_is_filled_once_per_value():
+    a = P._fs_tensor(500.0, torch.float32, torch.device("cpu"))
+    assert P._fs_tensor(np.float64(500.0), torch.float32, torch.device("cpu")) is a
+    assert a.shape == () and a.dtype == torch.float32 and float(a) == 500.0
+    assert P._fs_tensor(500.0, torch.float64, torch.device("cpu")) is not a
+    zero, minus_zero = (P._fs_tensor(v, torch.float32, "cpu") for v in (0.0, -0.0))
+    assert math.copysign(1.0, float(minus_zero)) == -1.0 != math.copysign(1.0, float(zero))
+    assert math.isnan(float(P._fs_tensor(math.nan, torch.float32, "cpu")))

@@ -4,8 +4,9 @@ Untraced, no span builds a ``record_function``.  Under ``torch.profiler``
 each stage of ``analyze_epoch`` shows as its span, nested as
 ``utils/profiling.py`` lists them, and the results are the same bits with
 the profiler on and off.  The single-window route needs a CUDA device, so
-the CPU tests pretend the window is on a card and count the kernel's
-calls, as ``tests/test_torch_lowlat_routing.py`` does.  The module imports
+the CPU tests pretend the window is on a card and count the route's
+passes (``latency_cuda._route_pass``), as ``tests/test_torch_lowlat_routing.py``
+does.  The module imports
 no JAX, so its ``gpu`` test runs on the card:
 
     python -m pytest --noconftest tests/test_torch_spans.py -m gpu
@@ -35,16 +36,16 @@ def _fresh_dynamic_state():
 
 @pytest.fixture
 def fake_card(monkeypatch):
-    """Pretend a single window is on a card; count the kernel's calls."""
+    """Pretend a single window is on a card; count the route's passes."""
     calls = []
-    real = L.analyze_window_lowlat
+    real = L._route_pass
 
-    def counting_kernel(*args, **kwargs):
-        calls.append(kwargs.get("max_candidates"))
+    def counting_pass(*args, **kwargs):
+        calls.append(kwargs.get("budget"))
         return real(*args, **kwargs)
 
     monkeypatch.setattr(P, "_lowlat_device", lambda samples: True)
-    monkeypatch.setattr(L, "analyze_window_lowlat", counting_kernel)
+    monkeypatch.setattr(L, "_route_pass", counting_pass)
     return calls
 
 
