@@ -46,6 +46,7 @@ from apda_fft_tpu_torch.ops import fft as fft_ops
 from apda_fft_tpu_torch.ops.fft import ieee_fp32_matmul
 from apda_fft_tpu_torch.ops.peaks_prominence import check_selection
 from apda_fft_tpu_torch.ops.stats import div_exact
+from apda_fft_tpu_torch.utils.placement import from_host, fs_tensor, placed, to_device
 
 #: Power-iteration steps for the per-frequency dominant eigenpair: the
 #: iterate converges as (s2/s1)**t, so at 60 steps a 0.9 ratio is resolved
@@ -116,7 +117,7 @@ def csd_matrix(
     ``G[f, a, b] = E[conj(X_a(f)) * X_b(f)]`` in density units, Hermitian,
     DC zeroed; the diagonal equals ``welch_psd``.
     """
-    records = _pipeline._placed(records, device, dtype)
+    records = placed(records, device, dtype)
     _check_records(records, hop)
     if records.shape[0] < 1:
         raise ValueError("need at least one sensor channel")
@@ -225,7 +226,7 @@ def _sv_spectra_sharded(gr: torch.Tensor, gi: torch.Tensor, mesh, axis: str, ite
     from apda_fft_tpu_torch.parallel.mesh import _gather
 
     devices = mesh.axis_devices(axis)
-    parts = [sv_spectra(_pipeline._to_device(r, dev), _pipeline._to_device(i, dev), iters)
+    parts = [sv_spectra(to_device(r, dev), to_device(i, dev), iters)
              for r, i, dev in zip(gr.tensor_split(len(devices)), gi.tensor_split(len(devices)),
                                   devices)]
     return _gather(parts, gr.device)
@@ -293,7 +294,7 @@ def harmonic_indicator(
     energy.  Near 1.5 flags a deterministic harmonic, near 3.0 a
     stochastically excited structural mode.
     """
-    records = _pipeline._placed(records, device, dtype)
+    records = placed(records, device, dtype)
     if records.dim() == 1:
         records = records[None, :]
     if records.dim() != 2:
@@ -319,8 +320,8 @@ def harmonic_indicator(
     dev = records.device
     kur, energy = _band_kurtosis_impl(
         records,
-        _pipeline._from_host(np.where(valid, k_idx, 1), dev),
-        _pipeline._from_host(np.where(valid, n_bins, 0), dev),
+        from_host(np.where(valid, k_idx, 1), dev),
+        from_host(np.where(valid, n_bins, 0), dev),
         window=window,
     )
     kur, w = torch.stack([kur, energy]).cpu().numpy().astype(np.float64)  # [M, S] each
@@ -438,7 +439,7 @@ def fdd(
     check_selection(selection)
     if mesh is not None and device is None:
         device = mesh.first_device
-    records = _pipeline._placed(records, device, dtype)
+    records = placed(records, device, dtype)
     _check_records(records, hop)
     if fdd_segments(records.shape[-1], window, hop) < 2:
         raise ValueError(f"need >= 2 segments: T={records.shape[-1]} with window={window}")
@@ -458,7 +459,7 @@ def fdd(
     # Equivalent-magnitude spectrum: sqrt of the power-like s1, so the
     # detector's -3 dB width (and its damping) reads on a magnitude scale.
     mags = torch.sqrt(torch.clamp(s1, min=0.0))[None, :]
-    fs_b = _pipeline._fs_tensor(fs, mags.dtype, mags.device).reshape(1)
+    fs_b = fs_tensor(fs, mags.dtype, mags.device).reshape(1)
     det = _pipeline._detect_from_mags(mags, fs_b, n_fft=n_fft, mode="flexible", k=k,
                                       max_candidates=max_candidates, refine=False)
     host = [t.numpy() for t in _host_copies([*det, freqs, s1, s2, vr, vi])]

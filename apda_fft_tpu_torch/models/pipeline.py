@@ -21,30 +21,30 @@ per-window resolution fallback.
 The default candidate budget is dynamic: a sticky per-``(n_fft, mode)``
 power-of-two budget with an overflow re-run and a learned two-tier split,
 so decisions always match the unbounded reference.  That learned state is
-this system's only state; :func:`dynamic_state`, :func:`load_dynamic_state`
-and :func:`reset_dynamic_state` read, set and clear it (the setter takes the
-JAX package's dictionaries as they are).
+this system's only state (``models/budget.py``); :func:`dynamic_state`,
+:func:`load_dynamic_state` and :func:`reset_dynamic_state` read, set and
+clear it (the setter takes the JAX package's dictionaries as they are).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
-import threading
 from typing import Any
 
 import numpy as np
 import torch
 
+from apda_fft_tpu_torch.models import budget as _budget
+from apda_fft_tpu_torch.models.budget import (  # noqa: F401 (the JAX package's names)
+    dynamic_state, last_dynamic_stats, load_dynamic_state, reset_dynamic_state,
+    steady_state_max_candidates)
 from apda_fft_tpu_torch.models.results import EpochResult
 from apda_fft_tpu_torch.ops import fft as fft_ops
 from apda_fft_tpu_torch.ops.detector_cuda import prominence_peaks_fused
 from apda_fft_tpu_torch.ops.peaks_prominence import check_selection
-from apda_fft_tpu_torch.ops.peaks_resolution import (
-    resolution_peaks,
-    rigid_half_corrections,
-)
+from apda_fft_tpu_torch.ops.peaks_resolution import resolution_peaks, rigid_corr_batch
 from apda_fft_tpu_torch.ops.stats import div_exact
+from apda_fft_tpu_torch.utils.placement import fs_tensor, from_host, placed, to_device
 from apda_fft_tpu_torch.utils.profiling import span
 
 MODES = ("flexible", "rigid", "adaptive")
@@ -60,18 +60,6 @@ def default_max_candidates(n_fft: int) -> int:
     return max(32, min(512, (n_fft // 2) // 64))
 
 
-#: Sticky per-(n_fft, mode) dynamic candidate budgets (powers of two, floor
-#: 2), their high-water marks, and the learned two-tier split
-#: ``(m_small, s_cap)`` - the same tables, with the same keys and values, as
-#: the JAX package keeps.
-_dynamic_budget: dict[tuple[int, str], int] = {}
-_dynamic_budget_hwm: dict[tuple[int, str], int] = {}
-_dynamic_tier: dict[tuple[int, str], tuple[int, int]] = {}
-#: m_small candidates: powers of two plus 1.5x points.
-_TIER_GRID = (4, 6, 8, 12, 16, 24, 32, 48, 64)
-_DYNAMIC_FLOOR = 2
-#: Stats of the most recent dynamic-budget run on this thread.
-_dynamic_tls = threading.local()
 #: Largest flexible budget the single-window latency route runs: the
 #: kernel's 64 slots, one round.  A window whose pass at this budget still
 #: reports more goes to the batched path.  The JAX package hands a window
@@ -82,154 +70,9 @@ _dynamic_tls = threading.local()
 LOWLAT_MAX_BUDGET = 64
 
 
-def _placed(x, device: torch.device | str | None, dtype: torch.dtype | None = None):
-    """``x`` as a tensor on ``device`` when given, else a tensor where it
-    lies, else (an array or list) on the card.
-
-    The port runs on CUDA unless the caller asks for the CPU; without a
-    CUDA device an array raises instead of carrying on there silently.
-    """
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device or x.device, dtype=dtype)
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port runs on the card by default; pass a CPU tensor "
-                "(or device='cpu' to analyze_epoch / PipelineConfig) to run on the CPU"
-            )
-        device = "cuda"
-    return _from_host(np.asarray(x), device, dtype)
-
-
-#: Host arrays up to this many bytes are copied to the card from pageable
-#: memory; larger ones go through pinned memory.  On the H100 a pageable
-#: ``non_blocking`` copy of up to 1 MiB was the faster one and did not wait
-#: for queued card work, while one of 4 MiB waited for it (``chip_smoke.py``
-#: phase 18 times both ways across sizes).
-_PAGEABLE_MAX_BYTES = 1 << 20
-
-
-def _from_host(a: np.ndarray, device, dtype: torch.dtype | None = None) -> torch.Tensor:
-    """The host array ``a`` as a tensor on ``device``, cast on the host.
-
-    A copy to the card is queued with ``non_blocking`` (a blocking copy
-    would wait for all work queued before it), so a caller can queue the
-    next epoch while the card runs this one.
-    """
-    t = torch.as_tensor(a, dtype=dtype)
-    if torch.device(device).type != "cuda":
-        return t.to(device)
-    if t.nbytes > _PAGEABLE_MAX_BYTES:
-        t = t.pin_memory()
-    return t.to(device, non_blocking=True)
-
-
-def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """``t`` on ``device``, waiting for the card only where the host reads
-    the copy: host memory to the card through :func:`_from_host`, card to
-    card by a ``non_blocking`` copy, and anything to the host by a blocking
-    one.  No copy at all when ``t`` lies on ``device`` already."""
-    if t.device.type == "cpu" and device.type == "cuda":
-        return _from_host(t.contiguous().numpy(), device)
-    return t.to(device, non_blocking=device.type == "cuda")
-
-
-def _fs_tensor(fs, dtype: torch.dtype, device) -> torch.Tensor:
-    """Sampling rate(s) ``fs`` as a ``dtype`` tensor on ``device``; a scalar
-    is filled there, so placing it does not wait for the card either, once
-    per value (:func:`_rate_scalar`).  Callers never write to the result."""
-    if isinstance(fs, torch.Tensor):
-        return fs.detach().to(device=device, dtype=dtype)
-    a = np.asarray(fs)
-    if a.ndim == 0:
-        v = float(a)
-        if v:  # 0.0 and -0.0 would share a cache entry
-            return _rate_scalar(v, dtype, device)
-        return torch.full((), v, dtype=dtype, device=device)
-    return _from_host(a, device, dtype)
-
-
-@functools.lru_cache(maxsize=64)
-def _rate_scalar(value: float, dtype: torch.dtype, device) -> torch.Tensor:
-    """The 0-dim ``dtype`` tensor ``value`` on ``device``, shared by every
-    call with the same arguments; filled on the stream current at its first
-    use (the port queues its work on one stream)."""
-    return torch.full((), value, dtype=dtype, device=device)
-
-
 def _lowlat_device(samples: torch.Tensor) -> bool:
     """Whether the latency kernels run on ``samples``' device."""
     return samples.device.type == "cuda"
-
-
-def last_dynamic_stats() -> dict:
-    d = getattr(_dynamic_tls, "stats", None)
-    if d is None:
-        d = _dynamic_tls.stats = {}
-    return d
-
-
-def dynamic_state() -> dict:
-    """Copies of the learned budget tables: ``{"budget", "hwm", "tier"}``."""
-    return {
-        "budget": dict(_dynamic_budget),
-        "hwm": dict(_dynamic_budget_hwm),
-        "tier": dict(_dynamic_tier),
-    }
-
-
-def load_dynamic_state(budget: dict, hwm: dict, tier: dict) -> None:
-    """Replace the learned tables, e.g. with the JAX package's
-    ``_dynamic_budget``, ``_dynamic_budget_hwm`` and ``_dynamic_tier``."""
-    reset_dynamic_state()
-    _dynamic_budget.update({(int(n), str(m)): int(v) for (n, m), v in budget.items()})
-    _dynamic_budget_hwm.update({(int(n), str(m)): int(v) for (n, m), v in hwm.items()})
-    _dynamic_tier.update(
-        {(int(n), str(m)): (int(a), int(c)) for (n, m), (a, c) in tier.items()}
-    )
-
-
-def reset_dynamic_state() -> None:
-    """Forget every learned budget and split."""
-    _dynamic_budget.clear()
-    _dynamic_budget_hwm.clear()
-    _dynamic_tier.clear()
-
-
-def _pow2_at_least(n: int) -> int:
-    return 1 << max(int(n) - 1, 1).bit_length()
-
-
-def _effective_mc(
-    budget: int, h: int, n_windows: int, tier: tuple[int, int] | None
-) -> int | tuple[int, int, int]:
-    """The budget for one dynamic pass: the flat int, or the two-tier
-    ``(m_small, m_big, s_cap)`` when a learned split applies.  Never tiers
-    at ``budget == h``, where a flat run is unconditionally exact."""
-    if (
-        tier is not None
-        and tier[0] * 2 <= budget
-        and budget < h
-        and n_windows >= 4 * min(tier[1], n_windows)
-    ):
-        return (tier[0], budget, tier[1])
-    return budget
-
-
-def steady_state_max_candidates(
-    n_fft: int, mode: str, n_windows: int
-) -> int | tuple[int, int, int]:
-    """What the dynamic budget would run for the next ``n_windows``-window
-    epoch on ``(n_fft, mode)``: the flat int budget or the two-tier split."""
-    h = max(n_fft // 2, 1)
-    key = (n_fft, mode)
-    budget = min(_dynamic_budget.get(key, _DYNAMIC_FLOOR), h)
-    return _effective_mc(budget, h, n_windows, _dynamic_tier.get(key))
-
-
-def _tier_capacity(b: int) -> int:
-    """Straggler capacity for a ``b``-window epoch: pow2(b/16) in [32, 512]."""
-    return max(32, min(512, _pow2_at_least(b // 16)))
 
 
 def refine_subbin(mags: torch.Tensor, idx: torch.Tensor, ds: torch.Tensor) -> torch.Tensor:
@@ -304,7 +147,7 @@ def _flex_detect_blocks(
     dev0 = gather_device or mags[0].device
     r1 = [flat_detect(m, f, m_small) for m, f in zip(mags, fss)]
     need_b = [r.n_required > m_small for r in r1]
-    need = torch.cat([_to_device(n, dev0) for n in need_b])
+    need = torch.cat([to_device(n, dev0) for n in need_b])
     # Stable sort: straggler indices first (ascending), clean windows after;
     # the picks re-sorted by index group each block's rows together.
     order = torch.argsort((~need).to(torch.int8), stable=True)
@@ -319,8 +162,8 @@ def _flex_detect_blocks(
     for m, f, size in zip(mags, fss, sizes):
         mem = (sel >= lo) & (sel < lo + size)
         loc = torch.where(mem, sel - lo, 0)
-        loc_b = _to_device(loc, m.device)
-        rows, rates = _to_device(m[loc_b], dev0), _to_device(f[loc_b], dev0)
+        loc_b = to_device(loc, m.device)
+        rows, rates = to_device(m[loc_b], dev0), to_device(f[loc_b], dev0)
         big_m = rows if big_m is None else torch.where(mem[:, None], rows, big_m)
         big_f = rates if big_f is None else torch.where(mem, rates, big_f)
         members.append(mem)
@@ -332,12 +175,12 @@ def _flex_detect_blocks(
     out = []
     for r, need_j, mem, idx, size in zip(r1, need_b, members, local, sizes):
         dev = need_j.device
-        idx, upd = _to_device(idx, dev), _to_device(mem & use2, dev)
+        idx, upd = to_device(idx, dev), to_device(mem & use2, dev)
 
         def merge(a1, a2):
             padded = torch.cat([a1, a1[:1]])
             u = upd.reshape((s_eff,) + (1,) * (a2.dim() - 1))
-            padded[idx] = torch.where(u, _to_device(a2, dev), padded[idx])
+            padded[idx] = torch.where(u, to_device(a2, dev), padded[idx])
             return padded[:size]
 
         merged = type(r)(*(merge(a1, a2) for a1, a2 in zip(r, r2)))
@@ -372,8 +215,8 @@ def _detect_from_mags(
 
     if flex is None and mode in ("flexible", "adaptive"):
         flex = _flex_detect(mags, fs_flat, n_fft=n_fft, k=k, max_candidates=max_candidates)
-    if mode == "flexible":
-        det = flex
+    if mode in ("flexible", "adaptive"):
+        det = flex if mode == "flexible" else _merge_adaptive(flex, rigid())
         prom, damp, qf = det.prominence, det.damping, det.q_factor
         n_cand, n_req = det.n_candidates, det.n_required
     elif mode == "rigid":
@@ -382,23 +225,6 @@ def _detect_from_mags(
         prom, damp, qf = zeros, zeros, zeros
         n_cand = det.n_candidates
         n_req = torch.zeros_like(n_cand)
-    elif mode == "adaptive":
-        # The prominence detector's damping band can reject everything on
-        # very sharp or very broad spectra; those windows fall back to the
-        # resolution detector, per window.
-        rig = rigid()
-        use_flex = (flex.count > 0)[:, None]
-        zeros = torch.zeros_like(flex.freq)
-        det = flex._replace(
-            count=torch.where(flex.count > 0, flex.count, rig.count),
-            idx=torch.where(use_flex, flex.idx, rig.idx),
-            freq=torch.where(use_flex, flex.freq, rig.freq),
-            mag=torch.where(use_flex, flex.mag, rig.mag),
-        )
-        prom = torch.where(use_flex, flex.prominence, zeros)
-        damp = torch.where(use_flex, flex.damping, zeros)
-        qf = torch.where(use_flex, flex.q_factor, zeros)
-        n_cand, n_req = flex.n_candidates, flex.n_required
     else:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
 
@@ -507,39 +333,6 @@ def _epoch_spectra(
     return fft_ops.halfspec_magnitudes(windows, backend=backend, precision=precision)
 
 
-@functools.lru_cache(maxsize=256)
-def _half_corrections(fs: float, n_fft: int) -> np.ndarray | None:
-    """:func:`rigid_half_corrections`, computed once per ``(fs, n_fft)``;
-    the table is shared, so it is read-only."""
-    c = rigid_half_corrections(fs, n_fft)
-    if c is not None:
-        c.flags.writeable = False
-    return c
-
-
-def _rigid_corr_batch(fs_host: np.ndarray, lead, n_fft: int) -> np.ndarray | None:
-    """Per-window non-dyadic wipe-rounding tables ``[*lead, ceil(H/50)]``
-    int8 from the ORIGINAL float64 rates, or None when every table is empty
-    (the dyadic case)."""
-    h = n_fft // 2
-    hq = len(range(25, h, 50))
-    if hq == 0:
-        return None
-    fs_host = np.broadcast_to(np.asarray(fs_host, np.float64), lead).reshape(-1)
-    tables: dict[float, Any] = {}
-    out = None
-    for i, v in enumerate(fs_host):
-        key = float(v)
-        if key not in tables:
-            tables[key] = _half_corrections(key, n_fft)
-        c = tables[key]
-        if c is not None:
-            if out is None:
-                out = np.zeros((fs_host.size, hq), np.int8)
-            out[i] = c
-    return out.reshape(tuple(lead) + (hq,)) if out is not None else None
-
-
 def detect_from_mags(
     mags,
     fs,
@@ -557,7 +350,7 @@ def detect_from_mags(
     budget.  A tensor runs where it lies, an array on the card.
     ``selection`` takes the JAX package's names, all one order
     (``ops.peaks_prominence.SELECTIONS``)."""
-    mags = _placed(mags, None)
+    mags = placed(mags, None)
     if mags.dim() != 2:
         raise ValueError(f"mags must be [B, H], got shape {tuple(mags.shape)}")
     if mode not in MODES:
@@ -660,16 +453,14 @@ def analyze_epoch(
     with span("apda.epoch"):
         fs_orig = fs  # pre-cast rate: the float64 value the rigid wipe rounding needs
         with span("apda.place"):
-            samples = _placed(samples, device, dtype)
+            samples = placed(samples, device, dtype)
             dev = samples.device
             if samples.dim() < 2:
                 samples = samples[None, :]
             lead = samples.shape[:-1]
-            fs = _fs_tensor(fs, dtype, dev)
+            fs = fs_tensor(fs, dtype, dev)
             if lengths is not None:
-                if not isinstance(lengths, torch.Tensor):
-                    lengths = _from_host(np.asarray(lengths), dev)
-                lengths = lengths.to(device=dev, dtype=torch.int32).broadcast_to(lead)
+                lengths = placed(lengths, dev, torch.int32).broadcast_to(lead)
         if n_fft is None:
             n_fft = fft_ops.next_pow2(samples.shape[-1])
         if k is None:
@@ -688,10 +479,10 @@ def analyze_epoch(
         # (None for the dyadic rates).
         half_corr = None
         if mode in ("rigid", "adaptive") and not empty:
-            table = _rigid_corr_batch(_host_rates(fs_orig), lead, n_fft)
+            table = rigid_corr_batch(fs_orig, lead, n_fft)
             if table is not None:
                 with span("apda.place"):
-                    half_corr = _from_host(table, dev)
+                    half_corr = from_host(table, dev)
 
         # One full window on a CUDA device: the single-window kernels, inside
         # the envelope the JAX package routes.
@@ -735,12 +526,9 @@ def analyze_epoch(
                 taper=taper, precision=precision,
             )
 
-        n_windows = 1
-        for d in lead:
-            n_windows *= d
         with span("apda.batched"):
             return _run_modes(run, mode=mode, dynamic=dynamic, max_candidates=max_candidates,
-                              n_fft=n_fft, n_windows=n_windows, prominence_pass=prominence_pass)
+                              n_fft=n_fft, n_windows=lead.numel(), prominence_pass=prominence_pass)
 
 
 def _check_options(*, n_fft: int, mode: str, max_candidates, center: str, selection: str,
@@ -779,18 +567,15 @@ def _check_options(*, n_fft: int, mode: str, max_candidates, center: str, select
     return dynamic, max_candidates
 
 
-def _host_rates(fs) -> np.ndarray:
-    """The rates ``fs`` as host float64, the precision the rigid wipe table needs."""
-    if isinstance(fs, torch.Tensor):
-        return fs.detach().cpu().double().numpy()
-    return np.asarray(fs, np.float64)
-
-
-def _merge_adaptive(flex: EpochResult, rig: EpochResult) -> EpochResult:
-    """Adaptive mode's merge: the prominence pass where it found a peak, the
-    resolution pass's decisions where it found none."""
+def _merge_adaptive(flex, rig) -> EpochResult:
+    """Adaptive mode's merge: the prominence result ``flex`` where it found
+    a peak (its damping band can reject everything on very sharp or very
+    broad spectra), the resolution result ``rig`` where it found none.  Of
+    two detector results ``refined_freq`` is None, for the caller to fill."""
     use = flex.count > 0
     usek = use[..., None]
+    refined = (torch.where(usek, flex.refined_freq, rig.refined_freq)
+               if isinstance(flex, EpochResult) else None)
     return EpochResult(
         count=torch.where(use, flex.count, rig.count),
         idx=torch.where(usek, flex.idx, rig.idx),
@@ -799,7 +584,7 @@ def _merge_adaptive(flex: EpochResult, rig: EpochResult) -> EpochResult:
         prominence=torch.where(usek, flex.prominence, 0.0),
         damping=torch.where(usek, flex.damping, 0.0),
         q_factor=torch.where(usek, flex.q_factor, 0.0),
-        refined_freq=torch.where(usek, flex.refined_freq, rig.refined_freq),
+        refined_freq=refined,
         n_candidates=flex.n_candidates,
         n_required=flex.n_required,
     )
@@ -828,7 +613,7 @@ def _run_modes(run, *, mode: str, dynamic: bool, max_candidates, n_fft: int,
         flex = prominence_pass()
     if not bool((flex.count == 0).any()):
         return flex
-    return _merge_adaptive(flex, run("rigid", _DYNAMIC_FLOOR))
+    return _merge_adaptive(flex, run("rigid", _budget.FLOOR))
 
 
 def _analyze_lowlat(samples, fs, *, n_fft: int, mode: str, k: int, refine: bool,
@@ -866,9 +651,8 @@ def _analyze_lowlat(samples, fs, *, n_fft: int, mode: str, k: int, refine: bool,
     key = (n_fft, mode)
     res = None
     if mode == "rigid":
-        res, _ = run(_DYNAMIC_FLOOR)  # budget unused by rigid
-    elif dynamic and _dynamic_budget.get(key, 0) <= cap:
-        budget = min(_dynamic_budget.get(key, _DYNAMIC_FLOOR), cap)
+        res, _ = run(_budget.FLOOR)  # budget unused by rigid
+    elif dynamic and (budget := _budget.sticky(key)) <= cap:
         passes = 0
         while True:
             passes += 1
@@ -881,18 +665,10 @@ def _analyze_lowlat(samples, fs, *, n_fft: int, mode: str, k: int, refine: bool,
                 break
             if budget >= cap:
                 return None  # the batched path re-runs it
-            budget = min(
-                max(_pow2_at_least(n_req), _dynamic_budget_hwm.get(key, 0), _DYNAMIC_FLOOR),
-                cap,
-            )
-        _dynamic_budget[key] = min(max(_pow2_at_least(n_req), _DYNAMIC_FLOOR), n_fft // 2)
-        _dynamic_budget_hwm[key] = max(_dynamic_budget_hwm.get(key, 0), budget)
-        stats = last_dynamic_stats()
-        stats.clear()
-        stats.update(
-            candidate_budget=budget, n_candidates_max=n_max,
-            n_required_max=n_req, budget_passes=passes,
-        )
+            budget = _budget.grow(key, n_req, cap)
+        _budget.settle(key, n_req, budget, n_fft // 2)
+        _budget.record_stats(candidate_budget=budget, n_candidates_max=n_max,
+                             n_required_max=n_req, budget_passes=passes)
     elif isinstance(max_candidates, int) and max_candidates <= cap:
         res, _ = run(max_candidates)
     return res
@@ -909,16 +685,16 @@ def _run_dynamic(run_pass, *, n_fft: int, mode: str, n_windows: int) -> EpochRes
     """
     h = n_fft // 2
     key = (n_fft, mode)
-    budget = min(_dynamic_budget.get(key, _DYNAMIC_FLOOR), max(h, 1))
-    s_cap = _tier_capacity(n_windows)
-    tier = _dynamic_tier.get(key)
+    budget = min(_budget.sticky(key), max(h, 1))
+    s_cap = _budget.tier_capacity(n_windows)
+    tier = _budget.learned_tier(key)
     passes = 0
     while True:
         passes += 1
-        mc = _effective_mc(budget, h, n_windows, tier)
+        mc = _budget.effective_mc(budget, h, n_windows, tier)
         res = run_pass(mc)
         nr = res.n_required.reshape(-1)
-        grid = torch.tensor(_TIER_GRID, dtype=nr.dtype, device=nr.device)
+        grid = torch.tensor(_budget.TIER_GRID, dtype=nr.dtype, device=nr.device)
         with span("apda.readback"):
             scalars = torch.cat([
                 torch.stack([nr.max(), res.n_candidates.max()]).long(),
@@ -932,30 +708,12 @@ def _run_dynamic(run_pass, *, n_fft: int, mode: str, n_windows: int) -> EpochRes
         # back to a flat re-run at the grown budget; the tier is re-learned
         # from the exact epoch's counts afterwards.
         tier = None
-        budget = min(
-            max(_pow2_at_least(n_req), _dynamic_budget_hwm.get(key, 0), _DYNAMIC_FLOOR), h
-        )
-    _dynamic_budget[key] = min(max(_pow2_at_least(n_req), _DYNAMIC_FLOOR), h)
-    _dynamic_budget_hwm[key] = max(_dynamic_budget_hwm.get(key, 0), budget)
-    # Learn the split: the smallest grid budget that leaves at most half the
-    # straggler capacity needing the big pass, provided it halves the budget.
-    new_tier = None
-    if n_windows >= 4 * s_cap:
-        for g, c in zip(_TIER_GRID, grid_counts):
-            if g * 2 <= _dynamic_budget[key] and c <= s_cap // 2:
-                new_tier = (g, s_cap)
-                break
-    if new_tier is None:
-        _dynamic_tier.pop(key, None)
-    else:
-        _dynamic_tier[key] = new_tier
-    stats = last_dynamic_stats()
-    stats.clear()
-    stats.update(
-        candidate_budget=budget, n_candidates_max=n_max,
-        n_required_max=n_req, budget_passes=passes,
-        tier=(mc if isinstance(mc, tuple) else None),
-    )
+        budget = _budget.grow(key, n_req, h)
+    _budget.settle(key, n_req, budget, h)
+    _budget.learn_tier(key, n_windows, s_cap, grid_counts)
+    _budget.record_stats(candidate_budget=budget, n_candidates_max=n_max,
+                         n_required_max=n_req, budget_passes=passes,
+                         tier=(mc if isinstance(mc, tuple) else None))
     return res
 
 

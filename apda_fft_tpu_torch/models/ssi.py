@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from apda_fft_tpu_torch.models.modal import modal_assurance
-from apda_fft_tpu_torch.models.pipeline import _placed
+from apda_fft_tpu_torch.utils.placement import placed
 from apda_fft_tpu_torch.ops.fft import ieee_fp32_matmul
 from apda_fft_tpu_torch.ops.stats import div_exact
 
@@ -123,7 +123,7 @@ def correlation_blocks(records, n_lags: int, *, detrend: str = "mean",
     mean removal by default (``detrend="none"`` to skip).  Returns host
     float64.
     """
-    records = _placed(records, device, dtype)
+    records = placed(records, device, dtype)
     if records.dim() != 2:
         raise ValueError(f"records must be [S, T], got shape {tuple(records.shape)}")
     s, t = records.shape

@@ -23,12 +23,15 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from apda_fft_tpu_torch.models import budget as _budget
 from apda_fft_tpu_torch.models import pipeline as _pipeline
 from apda_fft_tpu_torch.models.pipeline import analyze_epoch
 from apda_fft_tpu_torch.models.results import EpochResult
 from apda_fft_tpu_torch.ops import fft as fft_ops
 from apda_fft_tpu_torch.ops.peaks_prominence import check_selection
+from apda_fft_tpu_torch.ops.peaks_resolution import rigid_corr_batch
 from apda_fft_tpu_torch.ops.stats import div_exact
+from apda_fft_tpu_torch.utils.placement import fs_tensor, from_host, placed
 
 DETRENDS = ("median", "mean")
 
@@ -43,7 +46,7 @@ def frame_records(records, window: int, hop: int, *,
     tensor is framed where it lies (or moved to ``device``); an array or
     list goes to ``device``, by default the card, as in ``analyze_epoch``.
     """
-    records = _pipeline._placed(records, device)
+    records = placed(records, device)
     t = records.shape[-1]
     if window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
@@ -68,14 +71,14 @@ def analyze_stream(
     Returns an :class:`EpochResult` with batch shape ``[C, W]`` (or ``[W]``).
     ``kwargs`` pass through to :func:`analyze_epoch` (mode, backend, k, ...).
     """
-    records = _pipeline._placed(records, device, kwargs.get("dtype", torch.float32))
+    records = placed(records, device, kwargs.get("dtype", torch.float32))
     hop = window if hop is None else hop
     return analyze_epoch(frame_records(records, window, hop), fs, **kwargs)
 
 
 def _bin_freqs(fs, n_fft: int, dtype: torch.dtype, device) -> torch.Tensor:
     """Half-spectrum bin frequencies; per-channel fs broadcasts to [..., H]."""
-    fs_t = _pipeline._fs_tensor(fs, dtype, device)
+    fs_t = fs_tensor(fs, dtype, device)
     freqs = torch.arange(n_fft // 2, dtype=dtype, device=device) * div_exact(
         fs_t[..., None], float(n_fft))
     return freqs.reshape(-1) if fs_t.dim() == 0 else freqs
@@ -91,7 +94,7 @@ def _taper_power_sum(name: str, window: int) -> float:
 def _density_scale(fs, window: int, taper: str, dtype, device) -> torch.Tensor:
     """One-sided density scaling ``2 / (fs * sum(w^2))``, ``[..., 1]``."""
     wsum2 = float(window) if taper == "none" else _taper_power_sum(taper, window)
-    fs_t = _pipeline._fs_tensor(fs, dtype, device)
+    fs_t = fs_tensor(fs, dtype, device)
     return torch.full((), 2.0, dtype=dtype, device=device) / (fs_t[..., None] * wsum2)
 
 
@@ -169,7 +172,7 @@ def spectrogram(
     tapers, and returns ``mags[..., W, H]`` with the bin frequencies
     ``freqs[H]`` (``[C, H]`` for per-channel rates) in Hz.
     """
-    records = _pipeline._placed(records, device, dtype)
+    records = placed(records, device, dtype)
     hop = window if hop is None else hop
     _check(taper, detrend)
     n_fft = fft_ops.next_pow2(window)
@@ -199,7 +202,7 @@ def welch_psd(
     DC).  The DC bin is zeroed; ``psd`` is ``[..., H]``; ``hop`` defaults to
     50% overlap.
     """
-    records = _pipeline._placed(records, device, dtype)
+    records = placed(records, device, dtype)
     hop = max(window // 2, 1) if hop is None else hop
     _check(taper, detrend)
     n_fft = fft_ops.next_pow2(window)
@@ -245,7 +248,7 @@ def analyze_welch(
     no dynamic budget and no readback here.
     """
     fs_orig = fs  # pre-cast rate (rigid non-dyadic wipe rounding)
-    records = _pipeline._placed(records, device, dtype)
+    records = placed(records, device, dtype)
     hop = max(window // 2, 1) if hop is None else hop
     n_fft = fft_ops.next_pow2(window)
     if mode not in _pipeline.MODES:
@@ -269,18 +272,16 @@ def analyze_welch(
     lead = records.shape[:-1]
     half_corr = None
     if mode in ("rigid", "adaptive"):
-        fs_host = (fs_orig.detach().cpu().double().numpy()
-                   if isinstance(fs_orig, torch.Tensor) else np.asarray(fs_orig, np.float64))
-        table = _pipeline._rigid_corr_batch(fs_host, lead, n_fft)
+        table = rigid_corr_batch(fs_orig, lead, n_fft)
         if table is not None:
-            half_corr = _pipeline._from_host(table.reshape(-1, table.shape[-1]), dev)
+            half_corr = from_host(table.reshape(-1, table.shape[-1]), dev)
 
     mags = _segment_mags(records, window=window, hop=hop, taper=taper, backend=backend,
                          detrend=detrend, precision=precision)      # [..., W, H]
     # Welch: average segment POWER, report RMS magnitude (the scale of one
     # segment's spectrum; the zeroed DC bin stays zero).
     avg = torch.sqrt(_segment_mean(mags * mags))                    # [..., H]
-    fs_flat = _pipeline._fs_tensor(fs, dtype, dev).broadcast_to(lead).reshape(-1)
+    fs_flat = fs_tensor(fs, dtype, dev).broadcast_to(lead).reshape(-1)
     res = _pipeline._detect_from_mags(
         avg.reshape(-1, avg.shape[-1]), fs_flat, n_fft=n_fft, mode=mode, k=k,
         max_candidates=max_candidates, refine=refine, half_corr=half_corr,
@@ -309,8 +310,8 @@ def _cross_moments(x, y, window, hop, taper, detrend, dtype, device, want_autos=
     with the cross terms in scipy's ``conj(X) * Y`` sign convention.
     ``want_autos=False`` skips the auto-spectra (None in their slots).
     """
-    x = _pipeline._placed(x, device, dtype)
-    y = _pipeline._placed(y, device or x.device, dtype)
+    x = placed(x, device, dtype)
+    y = placed(y, device or x.device, dtype)
     if x.shape != y.shape:
         raise ValueError(f"x and y shapes differ: {tuple(x.shape)} vs {tuple(y.shape)}")
     hop = max(window // 2, 1) if hop is None else hop
@@ -464,14 +465,11 @@ def analyze_epochs_pipelined(
     dtype = kwargs.get("dtype", torch.float32)
 
     def dispatch(samples):
-        samples = _pipeline._placed(samples, device, dtype)
+        samples = placed(samples, device, dtype)
         nf = n_fft if n_fft is not None else fft_ops.next_pow2(samples.shape[-1])
         h = max(nf // 2, 1)
         key = (nf, mode)
-        if mode == "rigid":
-            budget = _pipeline._DYNAMIC_FLOOR  # unused by the rigid detector
-        else:
-            budget = min(_pipeline._dynamic_budget.get(key, _pipeline._DYNAMIC_FLOOR), h)
+        budget = _budget.FLOOR if mode == "rigid" else min(_budget.sticky(key), h)  # rigid: unused
         res = analyze(samples, fs, n_fft=nf, mode=mode, max_candidates=budget, **kwargs)
         return samples, nf, h, key, budget, res
 
@@ -483,22 +481,11 @@ def analyze_epochs_pipelined(
         # prefix or saw all its candidates (n_required <= budget).
         n_req = int(res.n_required.max())
         while n_req > budget and budget < h:
-            budget = min(
-                max(
-                    _pipeline._pow2_at_least(n_req),
-                    _pipeline._dynamic_budget_hwm.get(key, 0),
-                    _pipeline._DYNAMIC_FLOOR,
-                ),
-                h,
-            )
+            budget = _budget.grow(key, n_req, h)
             res = analyze(samples, fs, n_fft=nf, mode=mode, max_candidates=budget, **kwargs)
             n_req = int(res.n_required.max())
-        _pipeline._dynamic_budget[key] = min(
-            max(_pipeline._pow2_at_least(n_req), _pipeline._DYNAMIC_FLOOR), h
-        )
-        _pipeline._dynamic_budget_hwm[key] = max(
-            _pipeline._dynamic_budget_hwm.get(key, 0), budget
-        )
+        # The tier table and the stats stay as they were: no split runs here.
+        _budget.settle(key, n_req, budget, h)
         return res
 
     def generate():

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from apda_fft_tpu_torch.models.pipeline import _from_host, _placed
+from apda_fft_tpu_torch.utils.placement import from_host, placed
 from apda_fft_tpu_torch.ops.stats import div_exact
 
 G_TO_MMS2 = 9806.65  # 1 g in mm/s^2: converts g*s velocities to ISO mm/s
@@ -38,7 +38,7 @@ def _tukey(n: int, alpha: float) -> np.ndarray:
 def _float_records(x, device) -> torch.Tensor:
     """``x`` placed as the entry points place it, float32 unless it is a
     float32 or float64 already."""
-    x = _placed(x, device)
+    x = placed(x, device)
     if x.dtype not in (torch.float32, torch.float64):
         x = x.to(torch.float32)
     return x
@@ -48,7 +48,7 @@ def _rfft_freqs(n: int, fs: float, device) -> torch.Tensor:
     """``rfftfreq(n, 1/fs)`` computed in float64 as the JAX package computes
     it under x64 (``k / ((1/fs) * n)``), then cast to float32."""
     k = np.arange(n // 2 + 1, dtype=np.float64)
-    return _from_host(k / ((1.0 / fs) * n), device, torch.float32)
+    return from_host(k / ((1.0 / fs) * n), device, torch.float32)
 
 
 def _mean_centred(x: torch.Tensor) -> torch.Tensor:
@@ -118,7 +118,7 @@ def integrate_acceleration(
         raise ValueError(f"transition must be >= 0, got {transition}")
     fs = float(fs)
     f_hp = float(f_highpass) if f_highpass is not None else 8.0 * fs / n
-    win = _from_host(_tukey(n, edge_taper) if edge_taper > 0 else np.ones(n), x.device,
+    win = from_host(_tukey(n, edge_taper) if edge_taper > 0 else np.ones(n), x.device,
                      x.dtype)
     return _integrate_impl(x, win, fs, f_hp, float(transition), order=order)
 

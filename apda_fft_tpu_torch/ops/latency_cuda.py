@@ -38,7 +38,7 @@ import ctypes
 import numpy as np
 import torch
 
-from apda_fft_tpu_torch.models.pipeline import _placed, default_k, refine_subbin
+from apda_fft_tpu_torch.models.pipeline import default_k, refine_subbin
 from apda_fft_tpu_torch.models.results import EpochResult
 from apda_fft_tpu_torch.ops.detector_cuda import _NOT_PLACED, CLUSTER_SIZE
 from apda_fft_tpu_torch.ops.fft import halfspec_magnitudes, is_pow2, next_pow2
@@ -51,6 +51,7 @@ from apda_fft_tpu_torch.ops.peaks_prominence import (
 from apda_fft_tpu_torch.ops.peaks_resolution import resolution_peaks
 from apda_fft_tpu_torch.ops.stats import div_exact
 from apda_fft_tpu_torch.utils import kernels
+from apda_fft_tpu_torch.utils.placement import placed
 
 #: Kernel launches so far, per kernel (one per call on a CUDA tensor).
 launches = {"lowlat_flexible": 0, "lowlat_rigid": 0, "lowlat_flexible_cluster": 0,
@@ -272,7 +273,7 @@ def analyze_window_lowlat(
     max_candidates`` (the caller re-runs larger otherwise).
     """
     route_calls["public"] += 1
-    x = _placed(x, None, torch.float32)
+    x = placed(x, None, torch.float32)
     if x.dim() == 2:
         if x.shape[0] != 1:
             raise ValueError(f"latency path takes exactly one window, got {tuple(x.shape)}")

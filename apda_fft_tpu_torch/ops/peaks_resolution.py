@@ -15,6 +15,7 @@ Rounds run on the device; the host reads ``done.all()`` once every
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -76,6 +77,42 @@ def rigid_half_corrections(fs: float, n_fft: int) -> np.ndarray | None:
     base = q + (q % 2)  # banker's rounding of the exact half q + 0.5
     corr = (nd64 - base).astype(np.int8)
     return corr if corr.any() else None
+
+
+@functools.lru_cache(maxsize=256)
+def _half_corrections(fs: float, n_fft: int) -> np.ndarray | None:
+    """:func:`rigid_half_corrections`, computed once per ``(fs, n_fft)``;
+    the table is shared, so it is read-only."""
+    c = rigid_half_corrections(fs, n_fft)
+    if c is not None:
+        c.flags.writeable = False
+    return c
+
+
+def rigid_corr_batch(fs, lead, n_fft: int) -> np.ndarray | None:
+    """Per-window non-dyadic wipe-rounding tables ``[*lead, ceil(H/50)]``
+    int8 from the ORIGINAL float64 rates ``fs`` (a tensor, array or scalar,
+    before any cast), or None when every table is empty (the dyadic case)."""
+    if isinstance(fs, torch.Tensor):
+        fs = fs.detach().cpu().double().numpy()
+    fs_host = np.asarray(fs, np.float64)
+    h = n_fft // 2
+    hq = len(range(25, h, 50))
+    if hq == 0:
+        return None
+    fs_host = np.broadcast_to(fs_host, lead).reshape(-1)
+    tables: dict[float, np.ndarray | None] = {}
+    out = None
+    for i, v in enumerate(fs_host):
+        key = float(v)
+        if key not in tables:
+            tables[key] = _half_corrections(key, n_fft)
+        c = tables[key]
+        if c is not None:
+            if out is None:
+                out = np.zeros((fs_host.size, hq), np.int8)
+            out[i] = c
+    return out.reshape(tuple(lead) + (hq,)) if out is not None else None
 
 
 def resolution_peaks(

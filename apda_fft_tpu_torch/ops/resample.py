@@ -24,7 +24,7 @@ from math import gcd
 import numpy as np
 import torch
 
-from apda_fft_tpu_torch.models.pipeline import _from_host, _placed
+from apda_fft_tpu_torch.utils.placement import from_host, placed
 from apda_fft_tpu_torch.ops.fft import ieee_fp32_matmul
 
 __all__ = [
@@ -116,7 +116,7 @@ def _fir(x: torch.Tensor, taps: np.ndarray, *, up: int, down: int, n_out: int) -
         right = half + up + down
     else:
         right = half + down - 1
-    w = _from_host(np.ascontiguousarray(taps[::-1]), x.device, x.dtype)
+    w = from_host(np.ascontiguousarray(taps[::-1]), x.device, x.dtype)
     xp = torch.nn.functional.pad(x, (half, right))[:, None, :]
     with ieee_fp32_matmul():
         out = torch.nn.functional.conv1d(xp, w[None, None, :], stride=down)
@@ -125,7 +125,7 @@ def _fir(x: torch.Tensor, taps: np.ndarray, *, up: int, down: int, n_out: int) -
 
 def _run(records, taps: np.ndarray, *, up: int, down: int, n_out: int, dtype,
          device) -> np.ndarray:
-    x = _placed(records, device, dtype)
+    x = placed(records, device, dtype)
     lead, t = tuple(x.shape[:-1]), x.shape[-1]
     y = _fir(x.reshape(-1, t), taps, up=up, down=down, n_out=n_out)
     return y.cpu().numpy().astype(np.float64).reshape(lead + (n_out,))

@@ -17,7 +17,7 @@ import math
 
 import torch
 
-from apda_fft_tpu_torch.models.pipeline import _fs_tensor
+from apda_fft_tpu_torch.utils.placement import fs_tensor
 from apda_fft_tpu_torch.ops.fft import next_pow2
 from apda_fft_tpu_torch.ops.integrate import _float_records, _mean_centred
 from apda_fft_tpu_torch.ops.stats import div_exact
@@ -91,8 +91,8 @@ def ringdown_damping(x, fs, f0, band_rel: float = 0.2, min_cycles: float = 3.0, 
       ``zeta`` (damping ratio, NOT percent), batch-shaped.
     """
     x = _float_records(x, device)
-    fs_t = _fs_tensor(fs, x.dtype, x.device)
-    f0_t = _fs_tensor(f0, x.dtype, x.device)
+    fs_t = fs_tensor(fs, x.dtype, x.device)
+    f0_t = fs_tensor(f0, x.dtype, x.device)
     zeta, n_fit = _ringdown_impl(x, fs_t, f0_t, n_fft=next_pow2(x.shape[-1]),
                                  band_rel=band_rel)
     cycles = n_fit / fs_t * f0_t

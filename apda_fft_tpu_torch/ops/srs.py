@@ -36,7 +36,7 @@ import math
 import numpy as np
 import torch
 
-from apda_fft_tpu_torch.models.pipeline import _from_host
+from apda_fft_tpu_torch.utils.placement import from_host
 from apda_fft_tpu_torch.ops.integrate import _float_records
 
 
@@ -201,7 +201,7 @@ def shock_response_spectrum(
     pad = int(math.ceil(fs / float(freqs.min()))) if residual else 0
     powers = _rotation_powers(freqs, fs, q, x.shape[-1] + pad)
     dev, dt = x.device, x.dtype
-    out = _srs_impl(x, _from_host(b, dev, dt), _from_host(alpha, dev, dt),
-                    _from_host(beta, dev, dt), _from_host(powers, dev, dt), pad=pad)
+    out = _srs_impl(x, from_host(b, dev, dt), from_host(alpha, dev, dt),
+                    from_host(beta, dev, dt), from_host(powers, dev, dt), pad=pad)
     mm, pos, neg = out.cpu().numpy()
     return SRSResult(freqs=freqs, maximax=mm, positive=pos, negative=neg, q=float(q))

@@ -22,7 +22,7 @@ import functools
 
 import torch
 
-from apda_fft_tpu_torch.models.pipeline import _to_device
+from apda_fft_tpu_torch.utils.placement import to_device
 from apda_fft_tpu_torch.ops.fft import (
     _dft_tables,
     _twiddle_tables,
@@ -88,7 +88,7 @@ def distributed_halfspec_magnitudes(x, mesh: Mesh, data_axis: str = "data",
             local = [blk.reshape(bl, r1, n2) for blk in row]
             # Distributed transpose 1 (all_to_all, split m2, concat m1): rank
             # r receives chunk r of every rank's m2 axis, in rank order.
-            cols = [torch.cat([_to_device(a[:, :, r * r2:(r + 1) * r2], dev) for a in local],
+            cols = [torch.cat([to_device(a[:, :, r * r2:(r + 1) * r2], dev) for a in local],
                               dim=1)
                     for r, dev in enumerate(devs)]
             spec = []
@@ -103,7 +103,7 @@ def distributed_halfspec_magnitudes(x, mesh: Mesh, data_axis: str = "data",
             # Distributed transpose 2 (all_to_all, split k1, concat m2).
             mags = []
             for r, dev in enumerate(devs):
-                cr, ci = (torch.cat([_to_device(p[c][:, r * r1:(r + 1) * r1, :], dev)
+                cr, ci = (torch.cat([to_device(p[c][:, r * r1:(r + 1) * r1, :], dev)
                                      for p in spec], dim=2) for c in (0, 1))
                 _, _, c2, s2, _, _ = _tables(n1, n2, dev)
                 # Local N2-point DFT over the full m2.
@@ -111,7 +111,7 @@ def distributed_halfspec_magnitudes(x, mesh: Mesh, data_axis: str = "data",
                 di = torch.matmul(cr, s2) + torch.matmul(ci, c2)
                 mags.append(torch.sqrt(dr * dr + di * di)[:, :, : n2 // 2])  # [bl, r1, n2/2]
             # all_gather, then k = k1 + N1*k2.
-            gathered = torch.stack([_to_device(m, dev0) for m in mags])  # [ds, bl, r1, n2/2]
+            gathered = torch.stack([to_device(m, dev0) for m in mags])  # [ds, bl, r1, n2/2]
             out.append(gathered.permute(1, 3, 0, 2).reshape(bl, n // 2))
     full = torch.cat(out)
     full[:, 0] = 0.0

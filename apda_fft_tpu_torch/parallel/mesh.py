@@ -23,10 +23,11 @@ import numpy as np
 import torch
 
 from apda_fft_tpu_torch.models import pipeline as _pipeline
-from apda_fft_tpu_torch.models.pipeline import _to_device
 from apda_fft_tpu_torch.models.results import EpochResult
 from apda_fft_tpu_torch.ops import fft as fft_ops
+from apda_fft_tpu_torch.ops.peaks_resolution import rigid_corr_batch
 from apda_fft_tpu_torch.ops.stats import div_exact
+from apda_fft_tpu_torch.utils.placement import to_device
 
 
 class Mesh:
@@ -112,7 +113,7 @@ def _blocks(t: torch.Tensor, devices: list[torch.device], dim: int = 0) -> list[
     if t.shape[dim] % d:
         raise ValueError(f"axis {dim} of size {t.shape[dim]} is not divisible by the {d} shards")
     r = t.shape[dim] // d
-    return [_to_device(t.narrow(dim, j * r, r), dev) for j, dev in enumerate(devices)]
+    return [to_device(t.narrow(dim, j * r, r), dev) for j, dev in enumerate(devices)]
 
 
 def _as_tensor(x, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -138,7 +139,7 @@ def shard_batch(arr, mesh: Mesh, axis: str = "data") -> list[torch.Tensor]:
 def _gather(parts: list, dev: torch.device):
     """Per-shard tuples (or named tuples) of tensors, each field
     concatenated in shard order on ``dev``."""
-    fields = [torch.cat([_to_device(t, dev) for t in ts]) for ts in zip(*parts)]
+    fields = [torch.cat([to_device(t, dev) for t in ts]) for ts in zip(*parts)]
     return type(parts[0])(*fields) if hasattr(parts[0], "_fields") else tuple(fields)
 
 
@@ -239,7 +240,7 @@ def analyze_epoch_sharded(
     corr = None
     if mode in ("rigid", "adaptive") and rows:
         # The float64 rates, before any cast, for the non-dyadic wipe table.
-        corr = _pipeline._rigid_corr_batch(_pipeline._host_rates(fs_rows), (rows,), n_fft)
+        corr = rigid_corr_batch(fs_rows, (rows,), n_fft)
     shards = list(zip(
         _blocks(x, devices),
         _blocks(fs_rows.to(dtype), devices),
@@ -355,22 +356,22 @@ def correlation_blocks_sharded(
     dev0 = mesh.first_device
     chunks = _blocks(x, devices, dim=1)  # [S, C] a shard
     if detrend == "mean":
-        sums = [_to_device(ch.sum(dim=-1), dev0) for ch in chunks]
+        sums = [to_device(ch.sum(dim=-1), dev0) for ch in chunks]
         total = sums[0]
         for part in sums[1:]:
             total = total + part
         mean = div_exact(total, float(t))
-        chunks = [ch - _to_device(mean, ch.device)[:, None] for ch in chunks]
+        chunks = [ch - to_device(mean, ch.device)[:, None] for ch in chunks]
     partials = []
     for rank, ch in enumerate(chunks):
         right = chunks[(rank + 1) % d]
-        ext = torch.cat([ch, _to_device(right[:, : n_lags - 1], ch.device)], dim=-1)  # [S, C+L-1]
+        ext = torch.cat([ch, to_device(right[:, : n_lags - 1], ch.device)], dim=-1)  # [S, C+L-1]
         base = rank * c + torch.arange(c, device=ch.device)
         y0m_t = (ch * (base < t0).to(ch.dtype)[None, :]).T
         with fft_ops.ieee_fp32_matmul():
             partials.append(torch.stack([torch.matmul(ext[:, lag:lag + c], y0m_t)
                                          for lag in range(n_lags)]))
-    total = _to_device(partials[0], dev0)
+    total = to_device(partials[0], dev0)
     for part in partials[1:]:
-        total = total + _to_device(part, dev0)
+        total = total + to_device(part, dev0)
     return div_exact(total, float(t0)).cpu().numpy().astype(np.float64)

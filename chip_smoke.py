@@ -327,7 +327,7 @@ from apda_fft_tpu_torch.ops.fft_cuda import (
 from apda_fft_tpu_torch.ops.peaks_prominence import prominence_select
 from apda_fft_tpu_torch.ops.stats import ordered_noise_threshold
 from apda_fft_tpu_torch.ops import fft as fft_ops
-from apda_fft_tpu_torch.utils import benchtime, kernels, profiling
+from apda_fft_tpu_torch.utils import benchtime, kernels, placement, profiling
 from apda_fft_tpu_torch.utils.synthetic import modal_records
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2255,7 +2255,7 @@ def phase_pipelined(corpora: dict[str, np.ndarray], oracle,
     err = taps.check("18 pipelined")
     for a in (epochs[0], singles["flexible"][0]):  # pinned, and pageable (small)
         with _no_sync():
-            placed = pipeline._placed(a, None, torch.float32)
+            placed = placement.placed(a, None, torch.float32)
         assert torch.equal(placed.cpu(), torch.from_numpy(a))
 
     exact = DECISIONS + ("freq", "mag", "prominence", "damping", "q_factor", "refined_freq")
@@ -2305,20 +2305,20 @@ def phase_pipelined(corpora: dict[str, np.ndarray], oracle,
 def phase_placement(card: str) -> None:
     """How a host array reaches the card, by size: pinned then copied, or
     copied from pageable memory, both ``non_blocking``, against
-    ``pipeline._from_host`` (pinned past ``_PAGEABLE_MAX_BYTES``).  Host wall
+    ``placement.from_host`` (pinned past ``PAGEABLE_MAX_BYTES``).  Host wall
     with a synchronize, interleaved; then the host time of each call while
     the card is busy with ~10 ms of queued work, which shows whether the
     call waits for the card."""
     places = {
         "pinned": lambda a: torch.as_tensor(a).pin_memory().to("cuda", non_blocking=True),
         "pageable": lambda a: torch.as_tensor(a).to("cuda", non_blocking=True),
-        "_from_host": lambda a: pipeline._from_host(a, "cuda"),
+        "from_host": lambda a: placement.from_host(a, "cuda"),
     }
     rng = np.random.default_rng(2031)
     for n in (4096, 1 << 16, 1 << 18, 1 << 19, 1 << 20, BATCH * N_FFT):
         a = rng.standard_normal(n).astype(np.float32)
         ms = {k: [] for k in places}
-        for k in ("pinned", "pageable", "_from_host", "_from_host", "pageable", "pinned"):
+        for k in ("pinned", "pageable", "from_host", "from_host", "pageable", "pinned"):
             ms[k].append(_wall_ms(lambda: places[k](a), runs=20, warmup=2))
         busy = {}
         for k, place in places.items():

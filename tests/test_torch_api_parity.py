@@ -2,8 +2,9 @@
 the port.
 
 An AST walk of both packages: for each module of ``apda_fft_tpu/``, the
-port's module at the same path must define every public (not ``_``-led)
-top-level function and class, every public method of those classes (and
+port's module at the same path must define (or import from the port
+module that defines it) every public (not ``_``-led) top-level function
+and class, every public method of those classes (and
 ``__init__``), and every parameter of each, by name (a port function that
 takes ``**kwargs`` takes any).  The three Pallas files map to their CUDA
 counterparts name by name; their Pallas launch parameters (``interpret``,
@@ -51,13 +52,27 @@ def _params(node) -> tuple[list[str], bool]:
     return [p.arg for p in a.posonlyargs + a.args + a.kwonlyargs], a.kwarg is not None
 
 
-def _public(path: str) -> dict[str, tuple[list[str], bool] | None]:
+def _public(path: str, seen: frozenset = frozenset()) -> dict[str, tuple[list[str], bool] | None]:
     """Public top-level functions (their parameters), classes (None) and
-    public methods (``Class.method``) of a module."""
+    public methods (``Class.method``) of a module.  A name that a port
+    module imports from another port module counts as defined there, with
+    the parameters of its definition."""
     with open(path) as fh:
         tree = ast.parse(fh.read())
     out = {}
     for node in tree.body:
+        if isinstance(node, ast.ImportFrom) and (node.module or "").startswith(
+                "apda_fft_tpu_torch.") and path not in seen:
+            base = os.path.join(PORT, *node.module.split(".")[1:])
+            src = base + ".py" if os.path.exists(base + ".py") else os.path.join(base,
+                                                                                "__init__.py")
+            there = _public(src, seen | {path})
+            for alias in node.names:
+                name = alias.asname or alias.name
+                if not name.startswith("_"):
+                    out.update({name + key[len(alias.name):]: sig for key, sig in there.items()
+                                if key.split(".")[0] == alias.name})
+            continue
         if getattr(node, "name", "_").startswith("_"):
             continue
         if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):

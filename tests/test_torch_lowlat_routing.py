@@ -26,10 +26,13 @@ import torch
 
 import apda_fft_tpu.models.pipeline as JP
 import apda_fft_tpu.ops.latency_pallas as JL
+import apda_fft_tpu_torch.models.budget as B
 import apda_fft_tpu_torch.models.pipeline as P
 import apda_fft_tpu_torch.ops.latency_cuda as L
+import apda_fft_tpu_torch.ops.peaks_resolution as R
 from apda_fft_tpu_torch.models.pipeline import analyze_epoch
 from apda_fft_tpu_torch.ops.peaks_resolution import rigid_half_corrections
+from apda_fft_tpu_torch.utils.placement import fs_tensor
 from portbench.generators.sensor_windows import make_pool
 
 
@@ -97,7 +100,7 @@ def test_lowlat_never_skips_kernel(fake_card):
 def test_sticky_budget_past_cap_skips_kernel_attempt(fake_card):
     # A sticky budget past the 64-slot cap proves the kernel result would be
     # discarded; the routing must not pay the launch and readback.
-    P._dynamic_budget[(1024, "flexible")] = 128
+    B._dynamic_budget[(1024, "flexible")] = 128
     x = _modal(1024)
     analyze_epoch(x[None], 500.0, mode="flexible", device="cpu")
     assert fake_card == []
@@ -115,9 +118,29 @@ def test_overflow_past_cap_falls_back_to_batched(fake_card):
     ).astype(np.float32)
     routed = analyze_epoch(x[None], fs, mode="flexible", device="cpu")
     assert fake_card == [2, P.LOWLAT_MAX_BUDGET]  # the retry at the cap, then the hand-off
-    assert P._dynamic_budget[(4096, "flexible")] > P.LOWLAT_MAX_BUDGET
+    assert B._dynamic_budget[(4096, "flexible")] > P.LOWLAT_MAX_BUDGET
     unrouted = analyze_epoch(x[None], fs, mode="flexible", lowlat="never", device="cpu")
     _same_decisions(routed, unrouted)
+
+
+def test_a_need_past_half_the_cap_is_learned_whole(fake_card):
+    # 40 bin-exact tones above bin 1000 that all fail the damping floor: the
+    # walk never completes, so n_required = n_candidates = 40.  The route
+    # re-runs at the cap and serves the window there; the sticky budget
+    # learns 64, the need's power of two, as the batched path learns it.
+    fs, n = 500.0, 4096
+    t = np.arange(n) / fs
+    x = sum(
+        np.sin(2 * np.pi * (b * fs / n) * t) for b in range(1100, 1220, 3)
+    ).astype(np.float32)
+    routed = analyze_epoch(x[None], fs, mode="flexible", device="cpu")
+    assert fake_card == [2, P.LOWLAT_MAX_BUDGET]
+    assert int(routed.n_required[0]) == 40
+    assert P.dynamic_state()["budget"] == {(4096, "flexible"): 64}
+    P.reset_dynamic_state()
+    unrouted = analyze_epoch(x[None], fs, mode="flexible", lowlat="never", device="cpu")
+    _same_decisions(routed, unrouted)
+    assert P.dynamic_state()["budget"] == {(4096, "flexible"): 64}
 
 
 def test_bound_past_cap_retries_at_cap(fake_card, monkeypatch):
@@ -125,7 +148,7 @@ def test_bound_past_cap_retries_at_cap(fake_card, monkeypatch):
     # the cap: a bound, not the need.  The route re-runs the window at the
     # cap, where the walk finishes, and serves it with no batched pass.
     x = _bound_past_cap()
-    P._dynamic_budget[(4096, "flexible")] = 8
+    B._dynamic_budget[(4096, "flexible")] = 8
 
     def no_batched_pass(*args, **kwargs):
         raise AssertionError("the batched path ran")
@@ -137,7 +160,7 @@ def test_bound_past_cap_retries_at_cap(fake_card, monkeypatch):
     stats = P.last_dynamic_stats()
     assert stats["candidate_budget"] == P.LOWLAT_MAX_BUDGET and stats["budget_passes"] == 2
     assert stats["n_candidates_max"] > P.LOWLAT_MAX_BUDGET >= stats["n_required_max"]
-    assert P._dynamic_budget[(4096, "flexible")] <= P.LOWLAT_MAX_BUDGET
+    assert B._dynamic_budget[(4096, "flexible")] <= P.LOWLAT_MAX_BUDGET
     unrouted = analyze_epoch(x[None], 500.0, mode="flexible", refine=True, lowlat="never",
                              device="cpu")
     assert len(fake_card) == 2
@@ -158,7 +181,7 @@ def test_early_complete_walk_keeps_kernel_result_past_candidate_overflow(fake_ca
     routed = analyze_epoch(x[None], 500.0, mode="flexible", device="cpu")
     assert len(fake_card) >= 1
     assert int(routed.n_candidates.max()) > P.LOWLAT_MAX_BUDGET
-    assert P._dynamic_budget[(4096, "flexible")] <= P.LOWLAT_MAX_BUDGET
+    assert B._dynamic_budget[(4096, "flexible")] <= P.LOWLAT_MAX_BUDGET
     unrouted = analyze_epoch(x[None], 500.0, mode="flexible", lowlat="never", device="cpu")
     _same_decisions(routed, unrouted)
 
@@ -209,8 +232,8 @@ def test_routing_decisions_match_jax(fake_card, monkeypatch):
             assert int(got.count[0]) == int(want.count[0])
             assert np.array_equal(got.idx[0].numpy(), np.asarray(want.idx[0]))
         assert fake_card == jax_calls
-        assert P._dynamic_budget == JP._dynamic_budget
-        assert P._dynamic_budget_hwm == JP._dynamic_budget_hwm
+        assert B._dynamic_budget == JP._dynamic_budget
+        assert B._dynamic_budget_hwm == JP._dynamic_budget_hwm
     finally:
         JP._dynamic_budget.clear()
         JP._dynamic_budget_hwm.clear()
@@ -266,10 +289,10 @@ def test_a_held_route_result_is_not_written_by_the_next_request(fake_card, mode)
 
 def test_route_calls_count_passes_and_public_calls(fake_card):
     before = dict(L.route_calls)
-    P._dynamic_budget[(4096, "flexible")] = 8
+    B._dynamic_budget[(4096, "flexible")] = 8
     analyze_epoch(_bound_past_cap()[None], 500.0, mode="flexible", device="cpu")  # two passes
     analyze_epoch(_modal(1024)[None], 500.0, mode="rigid", device="cpu")  # one pass
-    assert fake_card == [8, P.LOWLAT_MAX_BUDGET, P._DYNAMIC_FLOOR]
+    assert fake_card == [8, P.LOWLAT_MAX_BUDGET, B.FLOOR]
     assert L.route_calls == {"internal": before["internal"] + 3, "public": before["public"]}
     L.analyze_window_lowlat(torch.from_numpy(_modal(1024)), 500.0, mode="rigid")
     L.analyze_window_lowlat(torch.from_numpy(_modal(1024)[None]), 500.0, mode="flexible")
@@ -287,7 +310,7 @@ def test_a_cached_wipe_table_is_not_written_by_a_non_dyadic_rigid_epoch(fs, lead
     want = analyze_epoch(x, fs, mode="rigid", device="cpu")
     _assert_same_fields(res, want)
     for v in rates:
-        cached, fresh = P._half_corrections(float(v), n), rigid_half_corrections(float(v), n)
+        cached, fresh = R._half_corrections(float(v), n), rigid_half_corrections(float(v), n)
         if fresh is None:
             assert cached is None
             continue
@@ -298,10 +321,10 @@ def test_a_cached_wipe_table_is_not_written_by_a_non_dyadic_rigid_epoch(fs, lead
 
 
 def test_a_scalar_rate_is_filled_once_per_value():
-    a = P._fs_tensor(500.0, torch.float32, torch.device("cpu"))
-    assert P._fs_tensor(np.float64(500.0), torch.float32, torch.device("cpu")) is a
+    a = fs_tensor(500.0, torch.float32, torch.device("cpu"))
+    assert fs_tensor(np.float64(500.0), torch.float32, torch.device("cpu")) is a
     assert a.shape == () and a.dtype == torch.float32 and float(a) == 500.0
-    assert P._fs_tensor(500.0, torch.float64, torch.device("cpu")) is not a
-    zero, minus_zero = (P._fs_tensor(v, torch.float32, "cpu") for v in (0.0, -0.0))
+    assert fs_tensor(500.0, torch.float64, torch.device("cpu")) is not a
+    zero, minus_zero = (fs_tensor(v, torch.float32, "cpu") for v in (0.0, -0.0))
     assert math.copysign(1.0, float(minus_zero)) == -1.0 != math.copysign(1.0, float(zero))
-    assert math.isnan(float(P._fs_tensor(math.nan, torch.float32, "cpu")))
+    assert math.isnan(float(fs_tensor(math.nan, torch.float32, "cpu")))

@@ -31,6 +31,7 @@ import apda_fft_tpu_torch.io.logfile
 import apda_fft_tpu_torch.io.native
 import apda_fft_tpu_torch.io.packets
 import apda_fft_tpu_torch.models.batching
+import apda_fft_tpu_torch.models.budget
 import apda_fft_tpu_torch.models.modal
 import apda_fft_tpu_torch.models.pipeline
 import apda_fft_tpu_torch.models.ssi
@@ -60,6 +61,7 @@ import apda_fft_tpu_torch.ops.stats
 import apda_fft_tpu_torch.utils.benchtime
 import apda_fft_tpu_torch.utils.compilecache
 import apda_fft_tpu_torch.utils.kernels
+import apda_fft_tpu_torch.utils.placement
 import apda_fft_tpu_torch.utils.profiling
 import apda_fft_tpu_torch.utils.synthetic
 import chip_smoke

@@ -17,6 +17,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+import apda_fft_tpu_torch.models.budget as B
 import apda_fft_tpu_torch.models.pipeline as P
 import apda_fft_tpu_torch.ops.latency_cuda as L
 from apda_fft_tpu_torch.utils import profiling
@@ -178,7 +179,7 @@ def test_retried_window_spans(fake_card):
 
 def test_handed_off_window_spans(fake_card):
     _, prof = _traced(lambda: _epoch("handoff"))
-    assert P._dynamic_budget[(4096, "flexible")] > P.LOWLAT_MAX_BUDGET
+    assert B._dynamic_budget[(4096, "flexible")] > P.LOWLAT_MAX_BUDGET
     passes = P.last_dynamic_stats()["budget_passes"]
     assert _span_tree(prof) == [
         ("apda.epoch", [("apda.place", []), _route(len(fake_card), True),

@@ -19,8 +19,10 @@ import torch
 
 from apda_fft_tpu.models import pipeline as jpipe
 from apda_fft_tpu.models import streaming as jstream
+from apda_fft_tpu_torch.models import budget as tbudget
 from apda_fft_tpu_torch.models import pipeline as tpipe
 from apda_fft_tpu_torch.models import streaming as tstream
+from apda_fft_tpu_torch.utils.placement import placed
 from tests.oracle import oracle_analyze, oracle_prominence_peaks, oracle_resolution_peaks
 from tests.signals import modal_signal
 from tests.test_cross_spectra import _pair
@@ -310,6 +312,10 @@ def test_coherence_zero_channel_is_zero():
 @pytest.mark.parametrize("depth", [1, 4])
 def test_pipelined_matches_sequential_and_jax(mode, depth):
     epochs = _epochs()
+    # A learned split that the stream must leave as it is, in both packages.
+    tier = {(1024, "flexible"): (4, 32)}
+    jpipe._dynamic_tier.update(tier)
+    tpipe.load_dynamic_state({}, {}, tier)
     got = list(tstream.analyze_epochs_pipelined(epochs, FS, depth=depth, mode=mode,
                                                 refine=True, device="cpu"))
     want = list(jstream.analyze_epochs_pipelined(epochs, FS, depth=depth, mode=mode,
@@ -319,8 +325,9 @@ def test_pipelined_matches_sequential_and_jax(mode, depth):
     state = tpipe.dynamic_state()
     assert state["budget"] == jpipe._dynamic_budget
     assert state["hwm"] == jpipe._dynamic_budget_hwm
+    assert state["tier"] == jpipe._dynamic_tier == tier
     if mode == "flexible":
-        assert state["hwm"][(1024, "flexible")] > tpipe._DYNAMIC_FLOOR
+        assert state["hwm"][(1024, "flexible")] > tbudget.FLOOR
     for samples, res, jres in zip(epochs, got, want):
         _assert_epoch_equal(res, jres)
         seq = tpipe.analyze_epoch(samples, FS, mode=mode, refine=True, device="cpu")
@@ -379,7 +386,7 @@ def test_int_budget_dispatch_reads_nothing_back(monkeypatch):
         m.setattr(tpipe, "_lowlat_device", lambda samples: True)
         for name in ("item", "tolist", "__bool__", "__int__", "__float__"):
             m.setattr(torch.Tensor, name, refuse)
-        got = [tpipe.analyze_epoch(tpipe._placed(s, "cpu", torch.float32), FS,
+        got = [tpipe.analyze_epoch(placed(s, "cpu", torch.float32), FS,
                                    max_candidates=8, refine=True) for s in (x, x[:1])]
     for g, w in zip(got, want):
         _assert_epoch_equal(g, type(w)(*(t.numpy() for t in w)))
