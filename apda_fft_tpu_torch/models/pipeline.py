@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from apda_fft_tpu_torch.models import budget as _budget
+from apda_fft_tpu_torch.models import graphs
 from apda_fft_tpu_torch.models.budget import (  # noqa: F401 (the JAX package's names)
     dynamic_state, last_dynamic_stats, load_dynamic_state, reset_dynamic_state,
     steady_state_max_candidates)
@@ -185,7 +186,7 @@ def _flex_detect_blocks(
 
         merged = type(r)(*(merge(a1, a2) for a1, a2 in zip(r, r2)))
         selmask = torch.zeros(size + 1, dtype=torch.bool, device=dev)
-        selmask[idx] = True
+        selmask.index_fill_(0, idx, True)  # no host scalar copied in: a graph captures it
         overflowed = need_j & ~selmask[:size]
         n_req = torch.where(overflowed, torch.clamp(merged.n_required, min=m_big + 1),
                             merged.n_required)
@@ -513,8 +514,8 @@ def analyze_epoch(
 
         def run(run_mode: str, mc) -> EpochResult:
             with span("apda.pass"):
-                return _analyze_epoch_impl(samples, fs, lengths, half_corr, mode=run_mode,
-                                           max_candidates=mc, **kwargs)
+                return graphs.run_pass(_analyze_epoch_impl, samples, fs, lengths, half_corr,
+                                       mode=run_mode, max_candidates=mc, **kwargs)
 
         def prominence_pass() -> EpochResult:
             # Adaptive mode's prominence pass is a flexible epoch of its own, so

@@ -16,10 +16,12 @@ Counterpart of ``apda_fft_tpu/ops/detector_pallas.py``:
 Dispatch is by the tensor's device: a CPU tensor runs the plain twin
 (:func:`_prominence_select_scan_plain`, :func:`_prominence_scans_plain`); a
 CUDA tensor launches the kernel or raises.  ``launches`` and
-``scan_launches`` count kernel launches.  Both kernels take rows past a
-block's shared memory (B1 from H = 57857, B5 from 58113, up to a few
-million bins) on one thread-block cluster of ``CLUSTER_SIZE`` CTAs a row;
-such a launch that the card refuses, or cannot place, raises.
+``scan_launches`` count kernel launches, from the launches noted
+(``utils.kernels.counts_launches``; a CUDA graph's replay notes its own).
+Both kernels take rows past a block's shared memory (B1 from H = 57857, B5
+from 58113, up to a few million bins) on one thread-block cluster of
+``CLUSTER_SIZE`` CTAs a row; such a launch that the card refuses, or cannot
+place, raises.
 """
 
 from __future__ import annotations
@@ -64,8 +66,23 @@ SCANS_SHARED_MAX_H = 227 * 1024 // 4
 
 _KERNEL = "prominence_select_scan"
 _SCANS_KERNEL = "prominence_scans"
+#: Each wrapper notes a launch of its cluster kernel under this name.
+_CLUSTER_KERNEL = _KERNEL + "_cluster"
+_CLUSTER_SCANS_KERNEL = _SCANS_KERNEL + "_cluster"
 _fn = None
 _scans_fn = None
+
+
+@kernels.counts_launches
+def _count(name: str) -> None:
+    """Advance the launch counters above for a launch noted as ``name``."""
+    global launches, cluster_launches, scan_launches, cluster_scan_launches
+    if name in (_KERNEL, _CLUSTER_KERNEL):
+        launches += 1
+        cluster_launches += name == _CLUSTER_KERNEL
+    elif name in (_SCANS_KERNEL, _CLUSTER_SCANS_KERNEL):
+        scan_launches += 1
+        cluster_scan_launches += name == _CLUSTER_SCANS_KERNEL
 
 
 def _kernel_fn():
@@ -156,7 +173,6 @@ def prominence_select_scan(mags: torch.Tensor, max_candidates: int):
     reference's walk order (4-dp-rounded magnitude descending, ties by
     ascending bin); slots past a row's candidates hold bin 0.
     """
-    global launches, cluster_launches
     if not isinstance(mags, torch.Tensor):
         raise TypeError(f"mags must be a torch.Tensor, got {type(mags).__name__}")
     if mags.dtype != torch.float32:
@@ -191,9 +207,8 @@ def prominence_select_scan(mags: torch.Tensor, max_candidates: int):
     )
     if rc != 0:
         raise _launch_error(_KERNEL, rc, err_str, lambda: smem(h, m), mags.device, b, h, m)
-    launches += 1
-    cluster_launches += h > SELECT_SCAN_SHARED_MAX_H
-    kernels.note_launch(_KERNEL, *select_scan_work(b, h, m))
+    kernels.note_launch(_CLUSTER_KERNEL if h > SELECT_SCAN_SHARED_MAX_H else _KERNEL,
+                        *select_scan_work(b, h, m))
     return cid, is_cand, cmag, proms, bins, std, n_cand
 
 
@@ -232,7 +247,6 @@ def prominence_scans(mags: torch.Tensor, cid: torch.Tensor, cmag: torch.Tensor,
     ``[B, M]`` float32 prominences and int32 widths; slots past
     ``n_valid`` hold 0 / 1.
     """
-    global scan_launches, cluster_scan_launches
     for name, t in (("mags", mags), ("cid", cid), ("cmag", cmag), ("n_valid", n_valid)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
@@ -269,9 +283,8 @@ def prominence_scans(mags: torch.Tensor, cid: torch.Tensor, cmag: torch.Tensor,
     )
     if rc != 0:
         raise _launch_error(_SCANS_KERNEL, rc, err_str, lambda: smem(h), mags.device, b, h, m)
-    scan_launches += 1
-    cluster_scan_launches += h > SCANS_SHARED_MAX_H
-    kernels.note_launch(_SCANS_KERNEL, *scans_work(b, h, m))
+    kernels.note_launch(_CLUSTER_SCANS_KERNEL if h > SCANS_SHARED_MAX_H else _SCANS_KERNEL,
+                        *scans_work(b, h, m))
     return prom, bins
 
 

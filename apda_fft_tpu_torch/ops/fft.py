@@ -182,14 +182,17 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-@functools.lru_cache(maxsize=64)
+# Unbounded, as is every cache of device tables in this module: a pass
+# replayed from a CUDA graph (``models/graphs.py``) reads the tables where it
+# was captured, so no entry may be freed.  Each is fixed by its size.
+@functools.lru_cache(maxsize=None)
 def _direct_tables(n: int, n_out: int, dtype: torch.dtype, device: torch.device):
     """``[n, n_out]`` cos and sin operands of the direct DFT, on ``device``."""
     c, s = _dft_tables(n, _dtype_name(dtype))
     return tuple(torch.tensor(t[:n_out].T, device=device) for t in (c, s))
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _fourstep_tables(n: int, n_out: int, dtype: torch.dtype, device: torch.device):
     """Operands of the four-step at ``n``: stacked step-1 ``[cos; sin]``
     ``[2*n2, n2]``, twiddle cos/sin ``[n2, n1]``, step-3 ``[cos | sin]``
@@ -383,7 +386,7 @@ def fft_matmul_real(
             di.transpose(-1, -2).reshape(*lead, n_out))
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _packed_tables(n: int, dtype: torch.dtype, device: torch.device):
     """Operands of :func:`rfft_packed_matmul` at ``n``: the DFT tables of
     ``n1`` and ``n2`` (``n/2 = n1*n2``), the twiddles ``[n1, n2]`` and the

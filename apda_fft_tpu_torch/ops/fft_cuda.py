@@ -12,7 +12,8 @@ the real transform's magnitudes.  It is what
 Dispatch is by the tensor's device: a CPU tensor runs
 :func:`_halfspec_magnitudes_fused_plain`, the same four-step as IEEE float32
 ``torch.matmul`` calls; a CUDA tensor launches the kernel or raises.
-``launches`` counts kernel launches.
+``launches`` counts kernel launches, from the launches noted
+(``utils.kernels.counts_launches``; a CUDA graph's replay notes its own).
 """
 
 from __future__ import annotations
@@ -37,6 +38,13 @@ launches = 0
 
 _KERNEL = "halfspec_fused"
 _fn = None
+
+
+@kernels.counts_launches
+def _count(name: str) -> None:
+    """Advance :data:`launches` for a launch noted as ``name``."""
+    global launches
+    launches += name == _KERNEL
 
 
 def _kernel_fn():
@@ -73,7 +81,9 @@ def _tables(n1: int, n2: int, device: torch.device = torch.device("cpu")):
     return tuple(torch.tensor(np.ascontiguousarray(t), device=device) for t in host)
 
 
-@functools.lru_cache(maxsize=32)
+# Unbounded: a pass replayed from a CUDA graph (``models/graphs.py``) reads
+# the table where it was captured, so no entry may be freed.
+@functools.lru_cache(maxsize=None)
 def _twiddle_table(n: int, device: torch.device = torch.device("cpu")) -> torch.Tensor:
     """The kernel's only parameters: ``W_n^k = exp(-2*pi*i*k/n)`` for
     ``k < n/2``, built in float64 and cast once to float32, as ``[n/2, 2]``
@@ -129,7 +139,6 @@ def halfspec_work(b: int, n: int) -> tuple[int, int]:
 
 
 def _launch(x: torch.Tensor) -> torch.Tensor:
-    global launches
     b, n = x.shape
     fn, ws_floats, err_str = _kernel_fn()
     table = _twiddle_table(n, x.device)
@@ -147,7 +156,6 @@ def _launch(x: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(
             f"{_KERNEL} launch failed (B={b}, N={n}): {err_str(rc).decode()} (cudaError {rc})"
         )
-    launches += 1
     kernels.note_launch(_KERNEL, *halfspec_work(b, n))
     return out
 

@@ -57,6 +57,14 @@ from apda_fft_tpu_torch.utils.placement import placed
 launches = {"lowlat_flexible": 0, "lowlat_rigid": 0, "lowlat_flexible_cluster": 0,
             "lowlat_rigid_cluster": 0}
 
+
+@kernels.counts_launches
+def _count(name: str) -> None:
+    """Advance :data:`launches` for a launch noted as ``name``."""
+    if name in launches:
+        launches[name] += 1
+
+
 #: Calls so far: ``internal`` counts the single-window route's passes
 #: (:func:`_route_pass`), ``public`` the calls of :func:`analyze_window_lowlat`.
 route_calls = {"internal": 0, "public": 0}
@@ -208,7 +216,6 @@ def _launch(x: torch.Tensor, fs: torch.Tensor, *, lead: tuple, mode: str, k: int
             f"{name} launch failed (N={n}, k={k}, budget={budget}): "
             f"{err_str(rc).decode()} (cudaError {rc})"
         )
-    launches[name] += 1
     kernels.note_launch(name, *lowlat_work(n, k))
     return _result_views(out, lead, k)
 

@@ -45,15 +45,47 @@ _lock = threading.Lock()
 _name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 _observers: list = []
+_counters: list = []
+_withheld = threading.local()
 
 
 def note_launch(name: str, nbytes: int, flops: int) -> None:
     """Report one launch of kernel ``name`` and its work (bytes of its inputs
     and outputs, float32 operations; each kernel module's ``*_work``) to
-    every :func:`observe_launches` callback.  The wrappers call it where
-    they count a launch."""
+    every :func:`counts_launches` counter and :func:`observe_launches`
+    callback, or, inside :func:`withheld` on this thread, to its list.  The
+    wrappers call it after each launch, and ``models/graphs.py`` again for
+    each launch a CUDA graph's replay runs."""
+    held = getattr(_withheld, "notes", None)
+    if held is not None:
+        held.append((name, nbytes, flops))
+        return
+    for count in _counters:
+        count(name)
     for callback in tuple(_observers):
         callback(name, nbytes, flops)
+
+
+def counts_launches(count):
+    """Call ``count(name)`` for every launch noted from now on: how each
+    kernel module keeps its launch counters, so that they advance alike for
+    a wrapper's launch and for its replay from a CUDA graph.  Returns
+    ``count``, so it decorates."""
+    _counters.append(count)
+    return count
+
+
+@contextlib.contextmanager
+def withheld():
+    """Collect the launches this thread notes inside in the list it yields,
+    instead of reporting them: a CUDA graph's capture queues launches that
+    run only when it replays (``models/graphs.py`` notes them then)."""
+    outer = getattr(_withheld, "notes", None)
+    _withheld.notes = notes = []
+    try:
+        yield notes
+    finally:
+        _withheld.notes = outer
 
 
 @contextlib.contextmanager

@@ -23,8 +23,9 @@ nested by time on the calling thread:
   kernel call and one ``apda.route.readback`` a dynamic-budget pass;
 * ``apda.batched``: the batched path, with one ``apda.pass`` a pass over
   the epoch (``apda.frontend``, ``apda.detect`` and within it
-  ``apda.refine``) and, under the dynamic budget, one ``apda.readback``
-  after each pass.
+  ``apda.refine``; a pass replayed from a CUDA graph,
+  ``models/graphs.py``, shows one ``apda.replay`` instead) and, under the
+  dynamic budget, one ``apda.readback`` after each pass.
 
 A request whose ``apda.route`` is followed by ``apda.batched`` was handed
 from the route to the batched path.  A span adds no synchronisation and

@@ -25,7 +25,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    run learns and then uses the two-tier split; the kernel's launch count
    must be > 0; every kernel call of that run is held against the plain
    version on its own spectra (at its budget and at the path's other
-   budgets); decisions are checked against the port's CPU run (256
+   budgets), every pass eager (a pass replayed from a CUDA graph runs no
+   wrapper to tap, so this phase and every other that taps the wrappers
+   runs eagerly; phase 28 holds replays to eager passes); decisions are
+   checked against the port's CPU run (256
    windows) and the float64 oracle (32 windows); one rigid and one adaptive
    epoch (B=256) are checked against the CPU run; one flexible and one
    adaptive epoch at N=131072 (B=16: damped modes, and undamped tones that
@@ -270,6 +273,26 @@ Phase 26 holds B1's threshold order:
    between the two thresholds, and whose kernel ``n_candidates`` differs
    from the twin's (reported);
 
+Phase 28 replays the batched flexible pass from a CUDA graph:
+
+28. ``models/graphs.py`` on the clean and noisy corpora, phase 5's
+   N=131072 epoch (B1's cluster kernel) and the clean corpus through the
+   pallas front end (B4), each at the budget its dynamic epochs settle at:
+   the first pass eager, the second captured (its wall and the memory its
+   graph's pool reserves printed), then eight epochs of other data, every
+   replayed result bit-equal to an eager pass on the same epoch (where a
+   bit moved: the field, how many elements, by how much); the hand
+   kernels a replay notes equal to an eager pass's, and those on its
+   profiled trace to those on an eager pass's wherever that trace shows
+   every noted launch; per pass, eager against
+   replayed in turns (eager, replay, replay, eager): host time, CUDA-event
+   time and the profiler's busy time and kernel count; ragged records in
+   six pow2 buckets a call (``analyze_records``, more keys than a device
+   keeps graphs): each key captured once at most, results equal with
+   graphs off, call time off and on in turns; then the clean cell's closed
+   loop (a host epoch in, the ten result fields on the host) with graphs
+   off and on in turns: windows/s, median and p95 epoch;
+
 then one JSON line describing the five kernels, B1's and B5's cluster
 kernels for rows past shared memory and B2's and B3's cluster kernels for
 windows of N >= 32768, each with its bound (the
@@ -284,6 +307,7 @@ package (the oracle in ``tests/oracle.py`` is plain numpy).
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import importlib.util
@@ -300,7 +324,7 @@ import time
 import numpy as np
 import torch
 
-from apda_fft_tpu_torch.models import batching, modal, pipeline, ssi, streaming
+from apda_fft_tpu_torch.models import batching, graphs, modal, pipeline, ssi, streaming
 from apda_fft_tpu_torch.ops import (
     detector_cuda,
     fft_cuda,
@@ -694,6 +718,22 @@ def _load_oracle():
     return _load_module("apda_oracle", "oracle.py")
 
 
+@contextlib.contextmanager
+def _eager_passes():
+    """Every batched pass inside runs eagerly, none from a CUDA graph
+    (``models/graphs.py``): a replay runs no kernel wrapper, so only an
+    eager pass shows each kernel call to a tap.  Phase 28 holds replays
+    bit-equal to eager passes."""
+    eligible = graphs.eligible
+    graphs.reset()
+    graphs.eligible = lambda samples, mode: False
+    try:
+        yield
+    finally:
+        graphs.eligible = eligible
+        graphs.reset()
+
+
 def phase_main_path_kernel_calls(calls) -> float:
     """Every kernel call of the main path against the plain version on the
     same spectra: at the call's own budget (the outputs the main path got),
@@ -759,6 +799,8 @@ def phase_main_path(corpora: dict[str, np.ndarray]) -> tuple[tuple[int, int], fl
 
     detector_cuda.prominence_select_scan = tapped
     detector_cuda.launches = detector_cuda.cluster_launches = 0
+    eager = contextlib.ExitStack()
+    eager.enter_context(_eager_passes())
     for name, x in corpora.items():
         xs = torch.from_numpy(x).cuda()
         for epoch in range(2):
@@ -784,6 +826,7 @@ def phase_main_path(corpora: dict[str, np.ndarray]) -> tuple[tuple[int, int], fl
     long_launches = detector_cuda.launches - before_long
     launches = detector_cuda.launches
     detector_cuda.prominence_select_scan = wrapper
+    eager.close()
     log(f"[5 main path] dynamic_state {pipeline.dynamic_state()}")
     log(f"[5 main path] kernel launches on the main path: {launches} "
         f"(calls at {[(tuple(c[0].shape), c[1]) for c in calls]})")
@@ -1432,6 +1475,8 @@ def phase_pallas_path(corpora: dict[str, np.ndarray]) -> tuple[int, float]:
 
     fft_cuda.halfspec_magnitudes_fused = tapped
     fft_cuda.launches = 0
+    eager = contextlib.ExitStack()
+    eager.enter_context(_eager_passes())
     try:
         for name, x in corpora.items():
             xs = torch.from_numpy(x).cuda()
@@ -1460,6 +1505,7 @@ def phase_pallas_path(corpora: dict[str, np.ndarray]) -> tuple[int, float]:
         launches = fft_cuda.launches
     finally:
         fft_cuda.halfspec_magnitudes_fused = wrapper
+        eager.close()
     log(f"[11 pallas path] front-end kernel launches on the path: {launches} (calls at "
         f"{[tuple(c[0].shape) for c in calls]}); one window launched it and no latency kernel")
     assert launches > 0, "the backend='pallas' path never launched the front-end kernel"
@@ -1745,9 +1791,12 @@ class _Taps:
     """While active, records every call of the B1, B2/B3 and B4 wrappers
     and every pass of the single-window route (the pipeline looks each up
     at call time), so that :meth:`check` can hold each call against its
-    plain twin on its own inputs."""
+    plain twin on its own inputs; every batched pass runs eagerly
+    (:func:`_eager_passes`)."""
 
     def __enter__(self):
+        self._eager = _eager_passes()
+        self._eager.__enter__()
         self.b1, self.lowlat, self.b4 = [], [], []
         self._saved = b1, lowlat, b4, route_pass = (
             detector_cuda.prominence_select_scan, latency_cuda.analyze_window_lowlat,
@@ -1784,6 +1833,7 @@ class _Taps:
     def __exit__(self, *exc):
         (detector_cuda.prominence_select_scan, latency_cuda.analyze_window_lowlat,
          fft_cuda.halfspec_magnitudes_fused, latency_cuda._route_pass) = self._saved
+        self._eager.__exit__(*exc)
 
     def check(self, tag: str) -> dict[str, float]:
         """Every tapped call against its plain twin; returns the max abs
@@ -3559,6 +3609,325 @@ def phase_last_slice(corpora: dict[str, np.ndarray], card: str
     return counts, err
 
 
+GRAPH_EPOCHS = 8
+GRAPH_TURNS = 4
+GRAPH_BLOCK = 10
+RESULT_FIELDS = ("count", "idx", "freq", "mag", "prominence", "damping", "q_factor",
+                 "refined_freq", "n_candidates", "n_required")
+#: Each hand kernel of a batched pass: the name its wrapper notes a launch
+#: under, and its symbol on the device's trace.
+HAND_KERNELS = {"prominence_select_scan": "select_scan_kernel",
+                "prominence_select_scan_cluster": "select_scan_cluster_kernel",
+                "prominence_scans": "preselected_scans_kernel",
+                "prominence_scans_cluster": "preselected_scans_cluster_kernel",
+                "halfspec_fused": "halfspec_fft_kernel"}
+#: The mixed-bucket records: one length a power-of-two bucket, two buckets
+#: more than a device keeps graphs, ``MIXED_RECORDS`` records each.
+MIXED_LENGTHS = (700, 1500, 3000, 6000, 12000, 24000)
+MIXED_RECORDS = 64
+
+
+def _graph_epochs(name: str) -> list[np.ndarray]:
+    """``GRAPH_EPOCHS`` host epochs of other data for case ``name``: windows
+    of a pool twice the batch of the clean or noisy corpus, or phase 5's
+    N=131072 epoch with fresh noise."""
+    if name == "long":
+        x = long_batch()
+        return [x + np.float32(0.01) * np.random.default_rng(28 + j).standard_normal(
+            x.shape, dtype=np.float32) for j in range(GRAPH_EPOCHS)]
+    pool = noisy_batch(2 * BATCH) if name == "noisy" else clean_batch(2 * BATCH)
+    return [pool[o:o + BATCH] for o in ((j * 409) % BATCH for j in range(GRAPH_EPOCHS))]
+
+
+def _bits_differ(got, want, where: str) -> None:
+    """Raises, naming each field whose bits differ, how many elements and
+    by how much."""
+    bad = []
+    for name, g, w in zip(RESULT_FIELDS, got, want):
+        if not torch.equal(g.reshape(-1).view(torch.uint8), w.reshape(-1).view(torch.uint8)):
+            diff = (g.double() - w.double()).abs()
+            bad.append(f"{name}: {int((g != w).sum())} elements, "
+                       f"max |diff| {float(diff.max()):.3g}")
+    assert not bad, f"{where}: replayed bits differ from eager: {bad}"
+
+
+def _pass_busy(fn) -> tuple[float, list[str]]:
+    """Of one call of ``fn`` after a warm-up call, from ``torch.profiler``:
+    the device's busy time in ms (the union of kernels, copies and
+    memsets) and the names of its kernels.  The spans' ranges on the
+    device's timeline are not device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = {e.name for e in events
+             if e.device_type == DeviceType.CPU and getattr(e, "is_user_annotation", False)}
+    device = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                    if e.device_type == DeviceType.CUDA and e.name not in spans
+                    and not getattr(e, "is_user_annotation", False))
+    busy, end = 0.0, float("-inf")
+    for s, e, _ in device:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+    return busy / 1e3, [name for *_, name in device if not name.startswith(("Memcpy", "Memset"))]
+
+
+def _hand(names: list[str]) -> collections.Counter:
+    """The launches of each hand kernel among ``names``, by the name its
+    wrapper notes."""
+    return collections.Counter(note for name in names for note, sym in HAND_KERNELS.items()
+                               if re.search(rf"\b{sym}\b", name))
+
+
+def _noted(fn) -> collections.Counter:
+    """The launches ``fn()`` notes, by name."""
+    noted = collections.Counter()
+    with kernels.observe_launches(lambda name, *_: noted.update((name,))):
+        fn()
+    return noted
+
+
+def _mixed_records(seed: int) -> list[tuple[np.ndarray, float]]:
+    rng = np.random.default_rng(seed)
+    records = []
+    for n in MIXED_LENGTHS:
+        t = np.arange(n) / FS
+        for _ in range(MIXED_RECORDS):
+            x = (np.sin(2 * np.pi * 12.3 * t + rng.uniform(0, 2 * np.pi))
+                 + 0.6 * np.sin(2 * np.pi * 47.7 * t) + 0.1 + 0.05 * rng.standard_normal(n))
+            records.append((x.astype(np.float32), FS))
+    return records
+
+
+def _graphs_on(on: bool) -> None:
+    """Graphs on (``models/graphs.py`` as it is) or off (every pass eager,
+    the path as it was before graphs)."""
+    graphs.eligible = _ELIGIBLE if on else (lambda samples, mode: False)
+
+
+_ELIGIBLE = graphs.eligible
+
+
+def _passes_since(counts: dict) -> dict:
+    return {k: graphs.passes[k] - counts[k] for k in counts}
+
+
+def phase_graphs(card: str) -> dict:
+    """Phase 28 (module docstring): the batched flexible pass from a CUDA
+    graph (``models/graphs.py``) against eager passes on one card."""
+    impl = pipeline._analyze_epoch_impl
+    fs = placement.fs_tensor(FS, torch.float32, torch.device("cuda"))
+    cases = {"clean": (N_FFT, "matmul"), "noisy": (N_FFT, "matmul"),
+             "long": (N_LONG, "matmul"), "pallas": (N_FFT, "pallas")}
+    epochs = {name: _graph_epochs("clean" if name == "pallas" else name) for name in cases}
+    # The budgets the dynamic loop settles at: the clean cell's flat budget,
+    # the noisy epoch's learned two-tier split and the long epoch's.
+    budgets = {}
+    with _eager_passes():
+        for name, (n, backend) in cases.items():
+            pipeline.reset_dynamic_state()
+            for _ in range(2):
+                pipeline.analyze_epoch(epochs[name][0], FS, n_fft=n, refine=True,
+                                       lowlat="never", backend=backend)
+            st = pipeline.last_dynamic_stats()
+            budgets[name] = st["tier"] or st["candidate_budget"]
+    pipeline.reset_dynamic_state()
+    log(f"[28 graphs] budgets: {budgets}")
+
+    out = {}
+    for name, (n, backend) in cases.items():
+        graphs.reset()
+        torch.cuda.empty_cache()
+        mc = budgets[name]
+        kw = dict(n_fft=n, mode="flexible", k=4, backend=backend, refine=True, center="auto",
+                  batch_chunk=BATCH, taper="none", precision="highest", max_candidates=mc)
+        xs = [torch.from_numpy(x).cuda() for x in epochs[name]]
+
+        def pass_(x, replay):
+            if replay:
+                return graphs.run_pass(impl, x, fs, None, None, **kw)
+            return impl(x, fs, None, None, **kw)
+
+        pass_(xs[0], True)  # first sighting: eager
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # as the capture does first: the pool is what it reserves
+        reserved, allocated = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        pass_(xs[1], True)  # second: capture and replay
+        torch.cuda.synchronize()
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        graph_mb = (torch.cuda.memory_reserved() - reserved) / 1e6
+        held_mb = (torch.cuda.memory_allocated() - allocated) / 1e6
+        assert graphs.passes["captured"] >= 1, graphs.passes
+        before = dict(graphs.passes)
+        for j, x in enumerate(xs):
+            _bits_differ(pass_(x, True), pass_(x, False), f"{name} epoch {j} at {mc}")
+        assert graphs.passes["replayed"] - before["replayed"] == len(xs), graphs.passes
+
+        # The hand kernels a replay launches, read from the device's trace,
+        # against an eager pass's and against the launches each notes.
+        # A replay runs no wrapper, so its trace shows what it launched:
+        # held against the eager pass's trace wherever that trace shows
+        # every launch the eager wrappers noted.  The profiler drops a run's
+        # device events at times (PERF.md section 7): a trace that misses a
+        # noted launch is taken again, up to three times, each retake logged.
+        noted = {r: _noted(lambda r=r: pass_(xs[0], r)) for r in (False, True)}
+        assert noted[True] == noted[False], (name, noted)
+        busy = {}
+        for r in (False, True):
+            for _ in range(3):
+                busy[r] = _pass_busy(lambda r=r: pass_(xs[0], r))
+                if _hand(busy[r][1]) == noted[r]:
+                    break
+                log(f"[28 graphs] {name} {'replay' if r else 'eager'}: the trace holds "
+                    f"{len(busy[r][1])} kernels, hand kernels {dict(_hand(busy[r][1]))} "
+                    f"against {dict(noted[r])} noted; taken again")
+        traced = {r: dict(_hand(b[1])) for r, b in busy.items()}
+        if traced[False] == noted[False]:
+            assert traced[True] == traced[False], (name, traced)
+        else:
+            log(f"[28 graphs] {name}: the profiler does not show the eager pass's hand "
+                f"kernels in full here (eager {traced[False]}, replay {traced[True]}, noted "
+                f"{dict(noted[False])}); the replay's trace is not held")
+
+        host = {False: [], True: []}
+        wall = {False: [], True: []}
+        for replay in (False, True, True, False) * GRAPH_TURNS:
+            torch.cuda.synchronize()
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for j in range(GRAPH_BLOCK):
+                t0 = time.perf_counter()
+                pass_(xs[j % len(xs)], replay)
+                host[replay].append((time.perf_counter() - t0) * 1e3)
+            stop.record()
+            stop.synchronize()
+            wall[replay].append(start.elapsed_time(stop) / GRAPH_BLOCK)
+        side = {False: "eager", True: "replay"}
+        out[name] = {
+            "budget": mc, "capture_ms": capture_ms, "graph_pool_mb": graph_mb,
+            "held_mb": held_mb, "hand_kernels": dict(noted[True]),
+            "host_ms": {side[r]: statistics.median(v) for r, v in host.items()},
+            "pass_ms": {side[r]: statistics.median(v) for r, v in wall.items()},
+            "busy_ms": {side[r]: busy[r][0] for r in busy},
+            "kernels": {side[r]: len(busy[r][1]) for r in busy},
+            "hand_traced": {side[r]: traced[r] for r in traced},
+        }
+        log(f"[28 graphs] {name} (B={xs[0].shape[0]}, N={n}, {backend}) at budget {mc}: "
+            f"{len(xs)} replayed passes bit-equal to eager; hand kernels a pass "
+            f"{dict(noted[True])} as noted, eager and replayed (traced: eager "
+            f"{traced[False]}, replay {traced[True]}); "
+            f"capture pass {capture_ms:.1f} ms, the graph's pool {graph_mb:.1f} MB reserved "
+            f"({held_mb:.1f} MB held); per pass, eager / replay: host "
+            f"{out[name]['host_ms']['eager']:.3f} / {out[name]['host_ms']['replay']:.3f} ms, "
+            f"events {out[name]['pass_ms']['eager']:.3f} / {out[name]['pass_ms']['replay']:.3f} "
+            f"ms, profiler busy {busy[False][0]:.3f} / {busy[True][0]:.3f} ms in "
+            f"{len(busy[False][1])} / {len(busy[True][1])} kernels (medians, {GRAPH_TURNS} "
+            f"turns of {GRAPH_BLOCK}, eager-replay-replay-eager; {card})")
+        del xs
+
+    out["records"] = _phase_graphs_records(card)
+
+    # The clean cell's closed loop: a host epoch in, the ten fields on the
+    # host, one epoch in flight; graphs off (every pass eager) and on, in turns.
+    pool = clean_batch(2 * BATCH)
+    starts = np.random.default_rng(28).integers(0, BATCH + 1, size=GRAPH_TURNS * 4 * GRAPH_BLOCK)
+
+    def request(s):
+        res = pipeline.analyze_epoch(pool[s:s + BATCH], FS, n_fft=N_FFT, refine=True)
+        return {f: getattr(res, f).cpu().numpy() for f in RESULT_FIELDS}
+
+    graphs.reset()
+    pipeline.reset_dynamic_state()
+    for s in starts[:8]:
+        request(s)
+    loop_s = {False: [], True: []}
+    counts = dict(graphs.passes)
+    try:
+        for i, on in enumerate((False, True, True, False) * GRAPH_TURNS):
+            _graphs_on(on)
+            for s in starts[i * GRAPH_BLOCK:(i + 1) * GRAPH_BLOCK]:
+                t0 = time.perf_counter()
+                request(s)
+                loop_s[on].append(time.perf_counter() - t0)
+    finally:
+        _graphs_on(True)
+    done = _passes_since(counts)
+    assert done["replayed"] == len(loop_s[True]), done
+    loop = {("graphs" if on else "eager"): {
+        "windows_per_s": BATCH * len(v) / sum(v),
+        "epoch_p95_ms": float(np.percentile(v, 95)) * 1e3,
+        "epoch_median_ms": statistics.median(v) * 1e3} for on, v in loop_s.items()}
+    log(f"[28 graphs] clean closed loop, B={BATCH} N={N_FFT}, {len(loop_s[True])} epochs a side "
+        f"in turns: {json.dumps(loop)}; passes while on {done}; {card}")
+    out["loop"] = loop
+    graphs.reset()
+    pipeline.reset_dynamic_state()
+    return out
+
+
+def _phase_graphs_records(card: str) -> dict:
+    """Phase 28's ragged records (``models/batching.py`` ``analyze_records``,
+    as the gateway calls it each tick): ``len(MIXED_LENGTHS)`` buckets a
+    call, more keys than a device keeps graphs.  Each key is captured once
+    at most; results equal with graphs off; call time with graphs off (the
+    eager path as before graphs) and on, in turns."""
+    sets = [_mixed_records(seed) for seed in range(4)]
+
+    def call(records):
+        return batching.analyze_records(records, refine=True)
+
+    graphs.reset()
+    pipeline.reset_dynamic_state()
+    counts = dict(graphs.passes)
+    for records in sets:  # every bucket seen, then captured where it is kept
+        call(records)
+    got = call(sets[0])
+    _graphs_on(False)
+    try:
+        want = call(sets[0])
+    finally:
+        _graphs_on(True)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _bits_differ([f[g.row] for f in g.result], [f[w.row] for f in w.result],
+                     f"record {i} (N={g.n_fft})")
+    times = {False: [], True: []}
+    window = dict(graphs.passes)
+    try:
+        for i, on in enumerate((False, True, True, False) * GRAPH_TURNS):
+            _graphs_on(on)
+            for j in range(GRAPH_BLOCK // 2):
+                t0 = time.perf_counter()
+                call(sets[(i + j) % len(sets)])
+                times[on].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        _graphs_on(True)
+    total, timed = _passes_since(counts), _passes_since(window)
+    keys = len(graphs._entries)
+    kept = sum(isinstance(v, graphs._Graph) for v in graphs._entries.values())
+    assert total["captured"] <= keys, (total, keys)  # one capture a key at most
+    assert kept <= graphs.MAX_GRAPHS, kept
+    calls_on = len(times[True])
+    out = {"keys": keys, "graphs_kept": kept, "passes": total, "timed_passes_on": timed,
+           "call_ms": {("graphs" if on else "eager"): statistics.median(v)
+                       for on, v in times.items()},
+           "records_per_s": {("graphs" if on else "eager"):
+                             len(sets[0]) * len(v) / (sum(v) / 1e3) for on, v in times.items()}}
+    log(f"[28 graphs] records: {len(MIXED_LENGTHS)} buckets a call ({MIXED_RECORDS} records "
+        f"of each length in {MIXED_LENGTHS}), {keys} keys, {kept} graphs kept "
+        f"(MAX_GRAPHS {graphs.MAX_GRAPHS}); results equal to graphs off; passes since the "
+        f"first call {total}, of them in the {calls_on} timed calls with graphs on {timed}; "
+        f"median call, eager / graphs: {out['call_ms']['eager']:.2f} / "
+        f"{out['call_ms']['graphs']:.2f} ms ({GRAPH_TURNS} turns of {GRAPH_BLOCK // 2} calls, "
+        f"off-on-on-off; {card})")
+    return out
+
+
 def main() -> int:
     t0 = time.perf_counter()
     card = phase_device()
@@ -3596,6 +3965,7 @@ def main() -> int:
     paths["last slice"] = phase_last_slice(corpora, card)
     phase_threshold_order(corpora, card)
     phase_rigid_threshold(card)
+    phase_graphs(card)
     log(f"[25 launches] by path: { {name: launches for name, (launches, _) in paths.items()} }")
     path_launches = {key: sum(p[0][key] for p in paths.values()) for key in _counts()}
     path_err = _max_err(*(err for _, err in paths.values()))

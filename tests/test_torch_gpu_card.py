@@ -24,11 +24,13 @@ import numpy as np
 import pytest
 import torch
 
-from apda_fft_tpu_torch.models import batching, modal, ssi, streaming
+from apda_fft_tpu_torch.models import batching, graphs, modal, ssi, streaming
 from apda_fft_tpu_torch.models import pipeline as tpipe
-from apda_fft_tpu_torch.ops import detector_cuda, fft_cuda, integrate, resample, ringdown, srs
+from apda_fft_tpu_torch.ops import (detector_cuda, fft, fft_cuda, integrate, resample,
+                                    ringdown, srs)
 from apda_fft_tpu_torch.ops import latency_cuda as tlat
 from apda_fft_tpu_torch.ops.peaks_prominence import prominence_select
+from apda_fft_tpu_torch.utils import kernels
 from apda_fft_tpu_torch.utils.synthetic import modal_records
 
 _TESTS = os.path.dirname(os.path.abspath(__file__))
@@ -762,3 +764,159 @@ def test_select_scan_threshold_on_fresh_rows():
         want = detector_cuda._prominence_select_scan_plain(mags, 12)
         assert torch.equal(got[5], want[5]), (seed, h, "std")
         assert torch.equal(got[6], want[6]), (seed, h, "n_cand")
+
+
+# The batched flexible pass from a CUDA graph (``models/graphs.py``), at
+# the clean cell's shape (B = 2048, N = 4096) and budget and at a two-tier
+# budget.
+_PASS_KW = dict(n_fft=4096, mode="flexible", k=4, backend="matmul", refine=True, center="auto",
+                batch_chunk=2048, taper="none", precision="highest")
+_TWO_TIER = (8, 32, 256)
+
+
+def _graph_epoch(seed: int, budget) -> np.ndarray:
+    """A clean epoch (the clean cell's model) for the flat budget, a noisy
+    one (unit noise and four weak damped modes) for the two-tier split."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(4096) / FS
+    if budget == 2:
+        x = np.sin(2 * np.pi * 12.3 * t) + 0.6 * np.sin(2 * np.pi * 47.7 * t) + 0.1
+        return (x + 0.05 * rng.standard_normal((2048, 4096))).astype(np.float32)
+    x = rng.standard_normal((2048, 4096))
+    for f, a, zeta in ((12.3, 0.9, 0.01), (47.7, 0.7, 0.008), (88.4, 0.55, 0.015)):
+        phase = rng.uniform(0, 2 * np.pi, size=(2048, 1))
+        x += a * np.sin(2 * np.pi * f * t + phase) * np.exp(-zeta * 2 * np.pi * f * t)
+    return x.astype(np.float32)
+
+
+def _bits(res) -> list:
+    return [f.reshape(-1).view(torch.uint8).cpu() for f in res]
+
+
+@pytest.fixture
+def fresh_graphs():
+    graphs.reset()
+    yield
+    graphs.reset()
+
+
+def _graph_passes(budget, seeds, impl=tpipe._analyze_epoch_impl):
+    """``[(epoch on the card, replayed-or-eager result, eager result)]``,
+    one a seed, each pass through ``graphs.run_pass``."""
+    fs = torch.tensor(FS, device="cuda")
+    out = []
+    for seed in seeds:
+        x = torch.from_numpy(_graph_epoch(seed, budget)).cuda()
+        got = graphs.run_pass(impl, x, fs, None, None, max_candidates=budget, **_PASS_KW)
+        want = tpipe._analyze_epoch_impl(x, fs, None, None, max_candidates=budget, **_PASS_KW)
+        out.append((x, got, want))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("budget", [2, _TWO_TIER], ids=["flat", "two_tier"])
+def test_replayed_passes_equal_eager_ones_bit_for_bit(budget, fresh_graphs):
+    _need_card()
+    before = dict(graphs.passes)
+    for seed, (_, got, want) in enumerate(_graph_passes(budget, range(5))):
+        for name, g, w in zip(want._fields, _bits(got), _bits(want)):
+            assert torch.equal(g, w), (seed, name)
+    assert {k: graphs.passes[k] - before[k] for k in before} == {
+        "eager": 1, "captured": 1, "replayed": 3}
+
+
+@pytest.mark.gpu
+def test_a_held_result_is_unchanged_after_the_next_replay(fresh_graphs):
+    _need_card()
+    fs = torch.tensor(FS, device="cuda")
+    held = []
+    for seed in range(5):
+        x = torch.from_numpy(_graph_epoch(seed, 2)).cuda()
+        res = graphs.run_pass(tpipe._analyze_epoch_impl, x, fs, None, None, max_candidates=2,
+                              **_PASS_KW)
+        held.append((res, _bits(res)))
+    assert graphs.passes["replayed"] >= 3
+    for res, bits in held:
+        for g, w in zip(_bits(res), bits):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("budget", [2, _TWO_TIER], ids=["flat", "two_tier"])
+def test_replays_advance_the_launch_counters_as_eager_passes_do(budget, fresh_graphs):
+    _need_card()
+    fs = torch.tensor(FS, device="cuda")
+    x = torch.from_numpy(_graph_epoch(0, budget)).cuda()
+    deltas = []
+    for _ in range(4):
+        noted = []
+        before = (detector_cuda.launches, detector_cuda.scan_launches, fft_cuda.launches)
+        with kernels.observe_launches(lambda *note: noted.append(note)):
+            graphs.run_pass(tpipe._analyze_epoch_impl, x, fs, None, None,
+                            max_candidates=budget, **_PASS_KW)
+        after = (detector_cuda.launches, detector_cuda.scan_launches, fft_cuda.launches)
+        deltas.append(([a - b for a, b in zip(after, before)], noted))
+    b1 = 1 if budget == 2 else 2
+    assert deltas[0][0] == [b1, 0, 0] and len(deltas[0][1]) == b1
+    assert all(d == deltas[0] for d in deltas), deltas  # eager, captured, two replays
+
+
+@pytest.mark.gpu
+def test_a_rigid_epoch_stays_eager(fresh_graphs):
+    _need_card()
+    x = _graph_epoch(0, 2)[:256]
+    before = dict(graphs.passes)
+    for _ in range(3):
+        tpipe.analyze_epoch(x, FS, mode="rigid", lowlat="never")
+    assert graphs.passes == before and not graphs._entries
+
+
+@pytest.mark.gpu
+def test_a_capture_made_to_fail_falls_back_to_eager(fresh_graphs):
+    """A pass that reads back to the host while captured: its capture
+    fails once, every pass runs eagerly with the eager bits, and a later
+    pass of another shape still captures."""
+    _need_card()
+
+    def reads_back(samples, *args, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            samples.sum().item()
+        return tpipe._analyze_epoch_impl(samples, *args, **kw)
+
+    before = dict(graphs.passes)
+    with pytest.warns(RuntimeWarning, match="capture"):
+        passes = _graph_passes(2, range(4), impl=reads_back)
+    for _, got, want in passes:
+        for g, w in zip(_bits(got), _bits(want)):
+            assert torch.equal(g, w)
+    assert graphs.passes["eager"] - before["eager"] == 4
+    assert list(graphs._entries.values()) == ["eager"]
+    for seed, (_, got, want) in enumerate(_graph_passes(_TWO_TIER, range(3))):
+        for g, w in zip(_bits(got), _bits(want)):
+            assert torch.equal(g, w), seed
+    assert graphs.passes["replayed"] - before["replayed"] == 1
+
+
+@pytest.mark.gpu
+def test_a_replay_reads_its_tables_after_many_other_table_entries(fresh_graphs):
+    """The four-step's device tables outlive more entries of their cache
+    than it ever held, with their freed neighbours' memory refilled: a
+    replay still reads the tables it was captured with."""
+    _need_card()
+    fs = torch.tensor(FS, device="cuda")
+    x = torch.from_numpy(_graph_epoch(0, 2)).cuda()
+    for _ in range(2):  # eager, then captured
+        graphs.run_pass(tpipe._analyze_epoch_impl, x, fs, None, None, max_candidates=2,
+                        **_PASS_KW)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    shapes = [t.shape for t in fft._fourstep_tables(4096, 2048, torch.float32, dev)]
+    for n_out in range(2049, 2049 + 80):
+        fft._fourstep_tables(4096, n_out, torch.float32, dev)
+    filler = [torch.full(shape, float("nan"), device=dev) for shape in shapes for _ in range(8)]
+    got = graphs.run_pass(tpipe._analyze_epoch_impl, x, fs, None, None, max_candidates=2,
+                          **_PASS_KW)
+    want = tpipe._analyze_epoch_impl(x, fs, None, None, max_candidates=2, **_PASS_KW)
+    assert graphs.passes["replayed"] >= 1
+    for name, g, w in zip(want._fields, _bits(got), _bits(want)):
+        assert torch.equal(g, w), name
+    del filler
